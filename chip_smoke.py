@@ -2,19 +2,33 @@
 """Smoke run of gatb_core_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile [--reads 6000000] [--out DIR]
+
+With ``--profile`` it runs none of the phases below: it counts the stress
+bank once on the fold path and once on the LSM chain without the profiler
+(host clock, the run's stopwatches), then once on each under
+``torch.profiler``, and prints per path the wall time, the device time
+summed over kernels and copies, the busy share (device time over wall
+time) and the kernels by device time; the full lists go to
+``DIR/profile_<path>.txt`` (default ``chiprun_out``).
 
 Builds the CUDA kernels of the port from this checkout (nvcc), holds each
 against its plain PyTorch version, then counts k-mers through the port's
-public ``count_kmers`` on three synthetic banks and checks every result
-against a numpy ground truth computed here:
+public entry points on synthetic banks and checks every result against a
+numpy ground truth computed here:
 
   1. kernels: tile_sort, tile_merge and merge_stage bit for bit against
      their plain versions, P in {2, 3, 4, 5, 9} planes, N from 2^10 to
      2^25, random / heavy-duplicate / sentinel / all-equal inputs; the
      full sort and merge_sorted_runs (run 2^24, and 3 x 2^26 rows at run
-     2^25) against the plain sort; then each kernel's time at the shapes
-     the stress count gives it (CUDA events, median after warm-up) beside
-     its plain version's, with both outputs held against each other;
+     2^25) against the plain sort; bitonic_u64 against its plain version
+     for N from 2^8 to 2^22 on the same four kinds of input; then each
+     kernel's time at the shapes the stress count gives it (bitonic_u64:
+     N = 2^14 and 2^22; CUDA events, median after warm-up) beside its
+     plain version's and, where one PyTorch call computes the same
+     function, that call's (torch.sort), with the outputs held against
+     each other; and the fetch of a 30M-row table, whole, packed and
+     streamed;
   2. bench bank: 200k x 150 bp reads of a 1 Mbp genome (seed 7, the
      generator of bench.make_dataset), k=31, abundance-min 3;
   3. multi-limb: 20k reads of the same generator, k=63 (W=4);
@@ -22,10 +36,23 @@ against a numpy ground truth computed here:
      generator of tools_dev/stress_r3.py:gen, ~0.9 GB of FASTA in a
      temporary directory), k=31, abundance-min 3: 29,999,950 solid k-mers;
   5. main-path shapes: every kernel bit for bit against its plain version
-     at each argument shape phases 2-4 launched it with.
+     at each argument shape the count phases launched it with (run last);
+  6. LSM merge chain (``carry_accumulator=False``): the bench bank in one
+     pass and in three (bank cache on, and ``bank_cache_bytes=0``) and the
+     stress bank in one pass, each solid table equal to the fold phase's;
+     a two-bank multibank count (the bench bank in two halves, solidity
+     kinds sum and all) against numpy;
+  7. dbgh5, counting stage: ``Graph.create`` on the bench bank with every
+     postsolid stage off, ``write_kff`` and ``read_kff`` of its table
+     against numpy, and the repartitor's minimizer census on the card
+     against its run on the CPU. (The ``.h5`` file is held by the CPU
+     tests: h5py is not installed beside the card.)
+  8. ``bitonic_sort_u64`` on 2^22 (hi, lo) pairs against ``np.sort``.
 
-Phases 2-4 each run with the kernels' launch counters set to 0 just
-before and read just after; every kernel must have launched in each.
+Phases 2-4 and 6-8 each run with the kernels' launch counters set to 0
+just before and read just after; every kernel of the phase's path must
+have launched in each (the three limb-sort kernels in the counts,
+bitonic_u64 in phase 8).
 Exits non-zero on any failure (and at once without a CUDA device). The
 line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is the JSON result.
@@ -48,7 +75,14 @@ REPLACES = {
     "tile_sort": "gatb_core_tpu/ops/pallas_sort.py:150",
     "tile_merge": "gatb_core_tpu/ops/pallas_sort.py:181",
     "merge_stage": "gatb_core_tpu/ops/pallas_sort.py:204",
+    "bitonic_u64": "gatb_core_tpu/ops/pallas_sort.py:45",
 }
+SORT_KERNELS = ("tile_sort", "tile_merge", "merge_stage")
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
+# the float32 rate outside the tensor cores as the nearest published rate
+# for 32-bit compare work
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -57,6 +91,14 @@ def log(msg: str) -> None:
 
 class Failure(Exception):
     pass
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    return out.splitlines()[0]
 
 
 def check(cond: bool, what: str) -> None:
@@ -266,6 +308,16 @@ def phase_kernels(torch, S):
         err_sort = max(err_sort, max_abs_err(m, S.sort_u32_limbs_plain(x)))
         n_checks += 1
         del x, halves, m
+    # bitonic_u64: one block below 2^14 pairs, the cooperative grid above
+    for lg in (8, 10, 13, 14, 15, 16, 18, 20, 22):
+        for kind in ("random", "duplicates", "sentinels", "equal"):
+            x = kernel_inputs(2, 1 << lg, kind, gen, torch)
+            got = torch.stack(S.bitonic_sort_u64(x[0], x[1]))
+            ref = torch.stack(S.bitonic_sort_u64_plain(x[0], x[1]))
+            err["bitonic_u64"] = max(err["bitonic_u64"],
+                                     max_abs_err(got, ref))
+            n_checks += 1
+            del x, got, ref
     torch.cuda.synchronize()
     log(f"phase 1 kernels: {n_checks} inputs, max |kernel - plain| "
         f"{err}, full sort/merge vs plain sort {err_sort}")
@@ -274,14 +326,16 @@ def phase_kernels(torch, S):
     return err
 
 
-def time_ms(torch, fn, src, warm=2, reps=7):
-    """Median CUDA-event time of fn on a fresh copy of src, and what the
-    last call returned (a kernel wrapper returns its sorted-in-place
+def time_ms(torch, fn, src, warm=2, reps=7, fresh=True):
+    """Median CUDA-event time of fn on a fresh copy of src (on src itself
+    with fresh=False, for a fn that leaves its argument alone), and what
+    the last call returned (a kernel wrapper returns its sorted-in-place
     argument, a plain version a new tensor)."""
-    y = torch.empty_like(src)
+    y = torch.empty_like(src) if fresh else src
     times = []
     for r in range(warm + reps):
-        y.copy_(src)
+        if fresh:
+            y.copy_(src)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -293,12 +347,37 @@ def time_ms(torch, fn, src, warm=2, reps=7):
     return float(np.median(times)), out
 
 
+def bound(n_bytes: int, n_ops: int):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of bytes over its memory rate and operations over its peak."""
+    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    by_ops = n_ops / PEAK_OPS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def network_ops(n: int, first_level: int, last_level: int,
+                stop_log2: int = 0) -> int:
+    """Compare-exchanges of the bitonic levels 2^first .. 2^last over n
+    rows, each level run down to stage j = 2^stop_log2: n/2 per stage.
+    One word comparison each is the least these inputs need (a further
+    plane is compared only on a tie in the planes before it)."""
+    stages = sum(lv - stop_log2 for lv in range(first_level, last_level + 1))
+    return n // 2 * stages
+
+
 def phase_timing(torch, S, card: str):
     """Each kernel and its plain version at the stress count's shapes:
     the raw sort (2 planes x 2^25 rows) and the fold merge (3 planes x
-    2^26 rows, runs of 2^25). The outputs of each pair are held against
-    each other. Returns {name: (ms, plain_ms)} and max |kernel - plain|
-    per kernel."""
+    2^26 rows, runs of 2^25); bitonic_u64 at 2^14 and 2^22 pairs. The
+    outputs of each pair are held against each other. Each bound is
+    computed from the timed input: every byte read once and written once,
+    one comparison per compare-exchange. The library call is one
+    torch.sort of the same rows joined into int64 keys (the join is made
+    before the clock starts); no PyTorch call computes one merge stage or
+    one merge level.
+    Returns {name: {ms, plain_ms, library_ms, bound_ms, bound_by}} and
+    max |kernel - plain| per name."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     raw = torch.randint(-2**31, 2**31 - 1, (2, 1 << 25), dtype=torch.int32,
@@ -311,37 +390,143 @@ def phase_timing(torch, S, card: str):
                       S.sort_u32_limbs_plain(fold[:, run:].contiguous())],
                      dim=1).contiguous()
     t_fold = 1 << S.tile_log2_for(3, 2 * run)
+    top = torch.iinfo(torch.int64).min
+
+    def keys_of(x):
+        """(2, N) uint32 planes -> (N,) int64 keys in unsigned order."""
+        return (((x[0].long() & 0xFFFFFFFF) << 32)
+                | (x[1].long() & 0xFFFFFFFF)) ^ top
+
+    lt, lf = t_sort.bit_length() - 1, t_fold.bit_length() - 1
+    raw_keys = keys_of(raw)
+    # name: (kernel, plain, input, shape, library call, its input,
+    #        bytes moved, comparisons)
     pairs = {
         "tile_sort": (lambda y: S.tile_sort(y, t_sort),
                       lambda y: S.tile_sort_plain(y, t_sort), raw,
-                      f"2 x 2^25 rows, tile {t_sort}"),
+                      f"2 x 2^25 rows, tile {t_sort}; library: torch.sort "
+                      "of the int64 keys along each tile",
+                      lambda q: torch.sort(q.view(-1, t_sort), dim=1).values,
+                      raw_keys, 2 * raw.numel() * 4,
+                      network_ops(1 << 25, 1, lt)),
         "merge_stage": (lambda y: S.merge_stage(y, run, run),
                         lambda y: S.merge_stage_plain(y, run, run), fold,
-                        "3 x 2^26 rows, run 2^25, flip stage"),
+                        "3 x 2^26 rows, run 2^25, flip stage; no library "
+                        "call", None, None, 2 * fold.numel() * 4,
+                        network_ops(2 * run, 1, 1)),
         "tile_merge": (lambda y: S.tile_merge(y, t_fold),
                        lambda y: S.tile_merge_plain(y, t_fold), fold,
-                       f"3 x 2^26 rows, tile {t_fold}"),
+                       f"3 x 2^26 rows, tile {t_fold}; no library call",
+                       None, None, 2 * fold.numel() * 4,
+                       network_ops(2 * run, lf, lf)),
         "sort_u32_limbs": (S.sort_u32_limbs, S.sort_u32_limbs_plain, raw,
                            "2 x 2^25 rows; plain: stable torch.sort per "
-                           "plane"),
+                           "plane; library: one torch.sort of int64 keys",
+                           lambda q: torch.sort(q).values, raw_keys,
+                           2 * raw.numel() * 4, network_ops(1 << 25, 1, 25)),
         "merge_sorted_runs": (lambda y: S.merge_sorted_runs(y, run),
                               S.sort_u32_limbs_plain, fold,
-                              "3 x 2^26 rows, run 2^25; plain: full sort"),
+                              "3 x 2^26 rows, run 2^25; plain: full sort; "
+                              "no library call", None, None,
+                              2 * fold.numel() * 4,
+                              network_ops(2 * run, 26, 26)),
     }
     times, errs = {}, {}
-    for name, (fn, plain, src, shape) in pairs.items():
+    for name, (fn, plain, src, shape, lib, lib_src, n_bytes,
+               n_ops) in pairs.items():
         ms, out = time_ms(torch, fn, src)
         plain_ms, ref = time_ms(torch, plain, src)
-        times[name] = (ms, plain_ms)
         errs[name] = max_abs_err(out, ref)
-        log(f"time {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms ({shape}; "
-            f"{card}); max |kernel - plain| {errs[name]}")
+        lib_ms = None
+        if lib is not None:
+            lib_ms, _ = time_ms(torch, lib, lib_src)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        log(f"time {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms by {b_by} ({shape}; {card}); "
+            f"max |kernel - plain| {errs[name]}")
         del out, ref
-    del raw, fold
+    del raw, fold, raw_keys
+    # bitonic_u64: the wrapper sorts copies of its arguments (the two
+    # device copies are inside its time)
+    for lg in (14, 22):
+        n = 1 << lg
+        x = torch.randint(-2**31, 2**31 - 1, (2, n), dtype=torch.int32,
+                          device="cuda", generator=gen)
+        ms, out = time_ms(torch, lambda y: S.bitonic_sort_u64(y[0], y[1]),
+                          x, fresh=False)
+        plain_ms, ref = time_ms(
+            torch, lambda y: S.bitonic_sort_u64_plain(y[0], y[1]), x,
+            fresh=False)
+        lib_ms, lib_out = time_ms(torch, lambda q: torch.sort(q).values,
+                                  keys_of(x))
+        name = f"bitonic_u64@2^{lg}"
+        errs[name] = max(max_abs_err(torch.stack(out), torch.stack(ref)),
+                         int((keys_of(torch.stack(out)) != lib_out).sum()))
+        b_ms, b_by = bound(2 * x.numel() * 4, network_ops(n, 1, lg))
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        log(f"time {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(torch.sort of int64 keys) {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} (2 x 2^{lg} words; {card}); "
+            f"max |kernel - plain| {errs[name]}")
+        del x, out, ref, lib_out
+    times["bitonic_u64"] = times["bitonic_u64@2^22"]
+    errs["bitonic_u64"] = max(errs["bitonic_u64@2^14"],
+                              errs["bitonic_u64@2^22"])
     torch.cuda.empty_cache()
     check(all(v == 0 for v in errs.values()),
           "timing: a kernel disagrees with its plain version")
     return times, errs
+
+
+def phase_fetch(torch, card: str):
+    """The fetch of a 30M-row k=31 table (the stress count's: 2 limb
+    planes at capacity 2^25, 29,999,963 live rows) from the card, three
+    ways: whole (``.cpu()`` of planes and int32 counts), packed (one
+    row-major tensor, uint8 counts and the exception list) and streamed
+    (the packed format in chunks of 2^23 rows on a side stream into pinned
+    memory). Host clock around each, the device idle before; each way runs
+    twice (the first pays the pinned allocations). All three must give the
+    same table."""
+    from gatb_core_tpu_torch.kmer import counting as C
+
+    cap, n, w = 1 << 25, 29_999_963, 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    planes = torch.randint(-2**31, 2**31 - 1, (w, cap), dtype=torch.int32,
+                           device="cuda", generator=gen)
+    counts = torch.randint(1, 60, (cap,), dtype=torch.int32, device="cuda",
+                           generator=gen)
+    counts[::100_003] = 70_000             # a few counts past the uint8
+    planes[:, n:] = -1
+    counts[n:] = 0
+    ways = {
+        "whole": lambda: C._fetch_table_whole(planes, counts, n, w),
+        "packed": lambda: C._fetch_table(planes, counts, n, w),
+        "streamed": lambda: C._StreamedTable(planes, counts, n,
+                                             w).materialize(),
+    }
+    out, secs = {}, {}
+    for name, fn in ways.items():
+        secs[name] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out[name] = fn()
+            secs[name].append(time.time() - t0)
+    for name in ("packed", "streamed"):
+        check(np.array_equal(out[name][0], out["whole"][0])
+              and np.array_equal(out[name][1], out["whole"][1]),
+              f"fetch: the {name} table differs from the whole one")
+    log("fetch of a 30M-row table (2 planes, capacity 2^25): "
+        + ", ".join(f"{name} {s[0]:.3f} s then {s[1]:.3f} s"
+                    for name, s in secs.items()) + f"; {card}")
+    del planes, counts, out
+    torch.cuda.empty_cache()
+    return secs
 
 
 def phase_shapes(torch, S, shapes: dict) -> dict:
@@ -358,7 +543,7 @@ def phase_shapes(torch, S, shapes: dict) -> dict:
         "merge_stage": (lambda x, a: S.merge_stage(x, *a),
                         lambda x, a: S.merge_stage_plain(x, *a)),
     }
-    err = {name: 0 for name in calls}
+    err = {name: 0 for name in REPLACES}
     n_checks = 0
     for name, (kern, plain) in calls.items():
         for P, n, *args in sorted(shapes[name]):
@@ -368,6 +553,14 @@ def phase_shapes(torch, S, shapes: dict) -> dict:
                 err[name] = max(err[name], max_abs_err(kern(x, args), ref))
                 n_checks += 1
                 del x, ref
+    for (n,) in sorted(shapes["bitonic_u64"]):
+        for kind in ("random", "duplicates"):
+            x = kernel_inputs(2, n, kind, gen, torch)
+            ref = torch.stack(S.bitonic_sort_u64_plain(x[0], x[1]))
+            err["bitonic_u64"] = max(err["bitonic_u64"], max_abs_err(
+                torch.stack(S.bitonic_sort_u64(x[0], x[1])), ref))
+            n_checks += 1
+            del x, ref
     torch.cuda.synchronize()
     log(f"phase 5 main-path shapes: {n_checks} checks over "
         f"{ {k: len(v) for k, v in shapes.items()} } shapes, "
@@ -377,27 +570,50 @@ def phase_shapes(torch, S, shapes: dict) -> dict:
     return err
 
 
-def counted(S, name: str, fn):
-    """Run fn with the launch counters at 0; require every kernel to have
-    launched. Returns fn's result, the launch counts and the launch
-    shapes."""
+def counted(S, name: str, fn, path=SORT_KERNELS):
+    """Run fn with the launch counters at 0; require every kernel of its
+    path to have launched. Returns fn's result, the launch counts and the
+    launch shapes."""
     S.reset_launches()
     out = fn()
     got = dict(S.launches)
     shapes = {k: set(v) for k, v in S.launch_shapes.items()}
     log(f"{name} launches: {got}")
-    check(all(v > 0 for v in got.values()),
+    check(all(got[k] > 0 for k in path),
           f"{name}: a kernel of the path was not launched")
     return out, got, shapes
 
 
-def phase_bench(tmp: str, S, count_kmers):
+class Tally:
+    """Launch counts and launch shapes summed over the counted phases."""
+
+    def __init__(self):
+        self.launches = {name: 0 for name in REPLACES}
+        self.shapes = {name: set() for name in REPLACES}
+
+    def counted(self, S, name: str, fn, path=SORT_KERNELS):
+        out, got, shapes = counted(S, name, fn, path)
+        for key in self.launches:
+            self.launches[key] += got[key]
+            self.shapes[key] |= shapes[key]
+        return out, got
+
+
+def same_table(a, b) -> bool:
+    return (np.array_equal(a.solid_kmers, b.solid_kmers)
+            and np.array_equal(a.solid_counts, b.solid_counts)
+            and np.array_equal(a.histogram.bins, b.histogram.bins))
+
+
+def phase_bench(tally, tmp: str, S, count_kmers):
+    """Returns the reads, the bank's path (kept for the later phases), the
+    numpy truth and the fold count's result."""
     reads = bench_reads()
     path = os.path.join(tmp, "bench.fa")
     with open(path, "wb") as f:
         write_reads(f, reads, 0)
     t0 = time.time()
-    res, got, shapes = counted(S, "phase 2 bench", lambda: count_kmers(
+    res, _ = tally.counted(S, "phase 2 bench", lambda: count_kmers(
         path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 22))
     wall = time.time() - t0
     info = res.info
@@ -414,17 +630,16 @@ def phase_bench(tmp: str, S, count_kmers):
     hist = np.bincount(np.minimum(cnts, 10000), minlength=10001)
     check(np.array_equal(res.histogram.bins.astype(np.int64), hist),
           "bench: histogram differs from the numpy ground truth")
-    os.remove(path)
-    return got, shapes, wall
+    return reads, path, (vals, cnts), res
 
 
-def phase_k63(tmp: str, S, count_kmers):
+def phase_k63(tally, tmp: str, S, count_kmers):
     reads = bench_reads(n_reads=20_000)
     path = os.path.join(tmp, "k63.fa")
     with open(path, "wb") as f:
         write_reads(f, reads, 0)
     t0 = time.time()
-    res, got, shapes = counted(S, "phase 3 k=63", lambda: count_kmers(
+    res, _ = tally.counted(S, "phase 3 k=63", lambda: count_kmers(
         path, kmer_size=63, abundance_min=1))
     wall = time.time() - t0
     rows, cnts = truth_k63(reads)
@@ -435,43 +650,268 @@ def phase_k63(tmp: str, S, count_kmers):
           and np.array_equal(res.solid_counts, cnts),
           "k=63: table differs from the numpy ground truth")
     os.remove(path)
-    return got, shapes, wall
 
 
-def phase_stress(tmp: str, S, count_kmers, card: str):
+def stress_count(tally, S, count_kmers, path: str, name: str, card: str,
+                 **kw):
+    """One count of the stress bank: the known exact result, a sorted
+    table, and the run's stopwatches in the log."""
+    t0 = time.time()
+    res, got = tally.counted(S, name, lambda: count_kmers(
+        path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 25,
+        nb_passes=1, **kw))
+    wall = time.time() - t0
+    info = res.info
+    sweep = info.get("fillsolid_time.4.process", 0.0)
+    stages = {key.split(".", 1)[1]: info[key] for key in sorted(info)
+              if key.startswith("fillsolid_time.")}
+    log(f"{name}: count {wall:.3f} s wall (fill "
+        f"{info['time_fill']:.3f} s, processor sweep {sweep:.3f} s; "
+        f"stopwatches {stages}), "
+        f"solid {info['kmers_nb_solid']}, valid {info['kmers_nb_valid']}, "
+        f"distinct {info['kmers_nb_distinct']}, parser {info['parser']}, "
+        f"passes {info['nb_passes_effective']}; {card}")
+    check(info["kmers_nb_solid"] == 29_999_950, f"{name}: solid k-mers")
+    check(info["kmers_nb_valid"] == 720_000_000, f"{name}: valid windows")
+    u = limbs_to_u64(res.solid_kmers)
+    check(bool(np.all(u[1:] > u[:-1])), f"{name}: table not sorted")
+    check(int(res.solid_counts.min()) >= 3, f"{name}: counts below cutoff")
+    return res, got
+
+
+def phase_stress(tally, tmp: str, S, count_kmers, card: str):
+    """Returns the bank's path (kept for the LSM phase), the fold count's
+    result and its launch counts."""
     path = os.path.join(tmp, "stress.fa")
     t0 = time.time()
     write_stress_bank(path)
     t_gen = time.time() - t0
     log(f"phase 4 stress: generation {t_gen:.3f} s "
         f"({os.path.getsize(path) / 1e9:.3f} GB FASTA)")
+    res, got = stress_count(tally, S, count_kmers, path, "phase 4 stress",
+                            card)
+    return path, res, got
+
+
+def phase_lsm(tally, S, count_kmers, bench_path: str, bench_fold,
+              stress_path: str, stress_fold, card: str):
+    """The LSM merge chain against the fold path's tables. Returns the
+    stress count's launch counts."""
+    runs = (("one pass", dict()),
+            ("three passes, bank cache", dict(nb_passes=3)),
+            ("three passes, no bank cache", dict(nb_passes=3,
+                                                 bank_cache_bytes=0)))
+    for label, kw in runs:
+        t0 = time.time()
+        res, _ = tally.counted(
+            S, f"phase 6 LSM bench, {label}", lambda: count_kmers(
+                bench_path, kmer_size=31, abundance_min=3,
+                superbatch_rows=1 << 22, carry_accumulator=False, **kw))
+        log(f"phase 6 LSM bench, {label}: count {time.time() - t0:.3f} s, "
+            f"distinct {res.info['kmers_nb_distinct']}, solid "
+            f"{res.info['kmers_nb_solid']}, passes "
+            f"{res.info['nb_passes_effective']}")
+        check(res.info["nb_passes_effective"] == kw.get("nb_passes", 1),
+              f"LSM bench, {label}: passes")
+        check(same_table(res, bench_fold)
+              and res.info["kmers_nb_valid"] == 24_000_000
+              and res.info["kmers_nb_distinct"] == 999_959,
+              f"LSM bench, {label}: differs from the fold count")
+    res, got = stress_count(tally, S, count_kmers, stress_path,
+                            "phase 6 LSM stress", card,
+                            carry_accumulator=False)
+    check(same_table(res, stress_fold),
+          "LSM stress: differs from the fold count")
+    return got
+
+
+def phase_multibank(tally, tmp: str, S, reads: np.ndarray):
+    """Two banks (the halves of the bench bank) through one multibank
+    count, solidity kinds sum and all, against numpy."""
+    from gatb_core_tpu_torch import count_kmers_multibank
+
+    half = len(reads) // 2
+    paths = []
+    for j, part in enumerate((reads[:half], reads[half:])):
+        paths.append(os.path.join(tmp, f"half{j}.fa"))
+        with open(paths[-1], "wb") as f:
+            write_reads(f, part, 0)
+    v0, c0 = truth_k31(reads[:half])
+    v1, c1 = truth_k31(reads[half:])
+    union = np.union1d(v0, v1)
+    mat = np.zeros((len(union), 2), np.int32)
+    mat[np.searchsorted(union, v0), 0] = c0
+    mat[np.searchsorted(union, v1), 1] = c1
+    expect = {"sum": mat.sum(axis=1) >= 3, "all": (mat >= 3).all(axis=1)}
+    for kind in ("sum", "all"):
+        t0 = time.time()
+        res, _ = tally.counted(
+            S, f"phase 6 multibank, {kind}", lambda: count_kmers_multibank(
+                paths, kmer_size=31, abundance_min=3, solidity_kind=kind))
+        log(f"phase 6 multibank, {kind}: count {time.time() - t0:.3f} s, "
+            f"distinct {res.info['kmers_nb_distinct']}, solid "
+            f"{res.info['kmers_nb_solid']}")
+        check(np.array_equal(limbs_to_u64(res.kmers), union)
+              and np.array_equal(res.counts_per_bank, mat)
+              and np.array_equal(res.counts_sum, mat.sum(axis=1)),
+              f"multibank, {kind}: matrix differs from numpy")
+        check(np.array_equal(res.solid_mask, expect[kind])
+              and res.info["kmers_nb_solid"] == int(expect[kind].sum()),
+              f"multibank, {kind}: solidity differs from numpy")
+    for path in paths:
+        os.remove(path)
+
+
+def phase_dbgh5(tally, tmp: str, S, bench_path: str, truth):
+    """The counting stage of dbgh5: the graph build with every postsolid
+    stage off and no .h5 output, the KFF dump of its table read back, and
+    the repartitor's census."""
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+    from gatb_core_tpu_torch.kmer.repartition import census_minimizers
+    from gatb_core_tpu_torch.storage.kff import read_kff, write_kff
+
+    vals, cnts = truth
+    solid = cnts >= 3
     t0 = time.time()
-    res, got, shapes = counted(S, "phase 4 stress", lambda: count_kmers(
-        path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 25,
-        nb_passes=1))
-    wall = time.time() - t0
-    info = res.info
-    sweep = info.get("fillsolid_time.4.process", 0.0)
-    stages = {key.split(".", 1)[1]: info[key] for key in sorted(info)
-              if key.startswith("fillsolid_time.")}
-    log(f"phase 4 stress: count {wall:.3f} s wall (fill "
-        f"{info['time_fill']:.3f} s, processor sweep {sweep:.3f} s; "
-        f"stopwatches {stages}), "
-        f"solid {info['kmers_nb_solid']}, valid {info['kmers_nb_valid']}, "
-        f"distinct {info['kmers_nb_distinct']}, parser {info['parser']}, "
-        f"passes {info['nb_passes_effective']}; {card}")
-    check(info["kmers_nb_solid"] == 29_999_950, "stress: solid k-mers")
-    check(info["kmers_nb_valid"] == 720_000_000, "stress: valid windows")
-    u = limbs_to_u64(res.solid_kmers)
-    check(bool(np.all(u[1:] > u[:-1])), "stress: table not sorted")
-    check(int(res.solid_counts.min()) >= 3, "stress: counts below cutoff")
-    os.remove(path)
-    return got, shapes, wall
+    graph, _ = tally.counted(S, "phase 7 dbgh5", lambda: Graph.create(
+        bank=bench_path, kmer_size=31, abundance_min=3, output=None,
+        bloom_kind="none", debloom_kind="none", mphf_kind="none",
+        build_branching=False, superbatch_rows=1 << 22))
+    t_graph = time.time() - t0
+    info = graph.get_info()
+    check(graph.nb_nodes == int(solid.sum()) == info["nb_solid_kmers"]
+          and info["kmers_nb_distinct"] == len(vals)
+          and np.array_equal(limbs_to_u64(graph.solid_limbs), vals[solid])
+          and np.array_equal(graph.solid_counts, cnts[solid]),
+          "dbgh5: the graph's solid table differs from numpy")
+    kff = os.path.join(tmp, "bench.kff")
+    t0 = time.time()
+    write_kff(kff, graph.solid_limbs, graph.solid_counts, 31)
+    k, entries, _ = read_kff(kff)
+    t_kff = time.time() - t0
+    codes = np.stack([c for c, _ in entries]).astype(np.uint64)
+    got = np.zeros(len(entries), np.uint64)
+    for t in range(31):
+        got = (got << np.uint64(2)) | codes[:, t]
+    check(k == 31 and np.array_equal(got, vals[solid])
+          and np.array_equal(np.array([c for _, c in entries]), cnts[solid]),
+          "dbgh5: the KFF entries differ from numpy")
+    on_card = census_minimizers(bench_path, 31, 10, max_sample_seqs=5000)
+    on_cpu = census_minimizers(bench_path, 31, 10, max_sample_seqs=5000,
+                               device="cpu")
+    check(int(on_card.sum()) == 5000 * 120
+          and np.array_equal(on_card, on_cpu),
+          "dbgh5: the minimizer census differs between card and CPU")
+    log(f"phase 7 dbgh5: graph build {t_graph:.3f} s, {graph.nb_nodes} "
+        f"nodes; KFF write and read {t_kff:.3f} s "
+        f"({os.path.getsize(kff) / 1e6:.1f} MB), {len(entries)} entries "
+        f"equal to numpy; census of 5000 reads equal on card and CPU")
+    os.remove(kff)
+
+
+def phase_bitonic(tally, S, torch, truth):
+    """``bitonic_sort_u64`` as a caller uses it: 2^22 (hi, lo) pairs, the
+    bench bank's distinct k-mers shuffled and padded with sentinels."""
+    vals, _ = truth
+    n = 1 << 22
+    keys = np.full(n, np.uint64(2**64 - 1))
+    keys[:len(vals)] = vals
+    np.random.default_rng(3).shuffle(keys)
+    hi = torch.from_numpy((keys >> np.uint64(32)).astype(np.uint32)
+                          .view(np.int32)).cuda()
+    lo = torch.from_numpy((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                          .view(np.int32)).cuda()
+    (oh, ol), got = tally.counted(
+        S, "phase 8 bitonic_sort_u64", lambda: S.bitonic_sort_u64(hi, lo),
+        path=("bitonic_u64",))
+    out = (oh.cpu().numpy().view(np.uint32).astype(np.uint64)
+           << np.uint64(32)) | ol.cpu().numpy().view(np.uint32)
+    check(np.array_equal(out, np.sort(keys)),
+          "bitonic_sort_u64: differs from np.sort")
+    log(f"phase 8 bitonic_sort_u64: 2^22 pairs ({len(vals)} k-mers and "
+        f"sentinels) equal to np.sort")
+
+
+def device_events(torch, prof):
+    """(name, self device microseconds, calls) of every device-side event
+    (kernels and copies) of a profile, longest first."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, float(us), int(e.count)))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_main(torch, count_kmers, n_reads: int, out_dir: str) -> int:
+    """The ``--profile`` mode: where the stress count's time goes, fold
+    path and LSM merge chain side by side."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(path, **kw):
+        t0 = time.time()
+        res = count_kmers(path, kmer_size=31, abundance_min=3,
+                          superbatch_rows=1 << 25, nb_passes=1, **kw)
+        return res, time.time() - t0
+
+    os.makedirs(out_dir, exist_ok=True)
+    card = card_line()
+    log(f"torch {torch.__version__}; {card}")
+    build_all()
+    paths = {"fold": dict(), "lsm": dict(carry_accumulator=False)}
+    with tempfile.TemporaryDirectory(prefix="gatb_profile_") as tmp:
+        bank = os.path.join(tmp, "stress.fa")
+        write_stress_bank(bank, n_reads=n_reads)
+        solid = set()
+        for name, kw in paths.items():
+            res, wall = count(bank, **kw)
+            info = res.info
+            stages = {k.split(".", 1)[1]: info[k] for k in sorted(info)
+                      if k.startswith("fillsolid_time.")}
+            log(f"{name}: count {wall:.3f} s wall, fill "
+                f"{info['time_fill']:.3f} s, stopwatches {stages}, solid "
+                f"{info['kmers_nb_solid']}; {card}")
+            solid.add(info["kmers_nb_solid"])
+        check(len(solid) == 1, "profile: the two paths disagree")
+        check(n_reads != 6_000_000 or solid == {29_999_950},
+              "profile: solid k-mers")
+        for name, kw in paths.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall = count(bank, **kw)
+                torch.cuda.synchronize()
+            rows = device_events(torch, prof)
+            dev_s = sum(r[1] for r in rows) / 1e6
+            log(f"{name} under the profiler: count {wall:.3f} s wall, "
+                f"device {dev_s:.3f} s, busy share {dev_s / wall:.3f}; "
+                f"{card}")
+            for key, us, calls in rows[:14]:
+                log(f"  {us / 1e3:10.1f} ms  {calls:7d} x  {key[:90]}")
+            with open(os.path.join(out_dir, f"profile_{name}.txt"),
+                      "w") as f:
+                for key, us, calls in rows:
+                    f.write(f"{us / 1e3:.3f}\t{calls}\t{key}\n")
+            del prof
+    return 0
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="profile the stress count instead of the phases")
+    ap.add_argument("--reads", type=int, default=6_000_000,
+                    help="reads of the stress bank under --profile")
+    ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"),
+                    help="directory of the profile lists")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -483,11 +923,10 @@ def main() -> int:
         print(f"chip_smoke: the gatb_core_tpu_torch package is missing "
               f"({e})", file=sys.stderr)
         return 2
+    if args.profile:
+        return profile_main(torch, count_kmers, args.reads, args.out)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    smi = smi.splitlines()[0]
+    smi = card_line()
     card = f"{torch.cuda.get_device_name(0)}, power limit " \
         f"{smi.split(',')[-1].strip()}"
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
@@ -495,24 +934,31 @@ def main() -> int:
     build_all()
     err = phase_kernels(torch, S)
     times, err_t = phase_timing(torch, S, card)
-    launches = {name: 0 for name in REPLACES}
-    shapes = {name: set() for name in REPLACES}
+    phase_fetch(torch, card)
+    tally = Tally()
     with tempfile.TemporaryDirectory(prefix="gatb_smoke_") as tmp:
-        for phase in (lambda: phase_bench(tmp, S, count_kmers),
-                      lambda: phase_k63(tmp, S, count_kmers),
-                      lambda: phase_stress(tmp, S, count_kmers, card)):
-            got, got_shapes, _ = phase()
-            for name in launches:
-                launches[name] += got[name]
-                shapes[name] |= got_shapes[name]
-    err_s = phase_shapes(torch, S, shapes)
+        reads, bench_path, truth, bench_fold = phase_bench(
+            tally, tmp, S, count_kmers)
+        phase_k63(tally, tmp, S, count_kmers)
+        stress_path, stress_fold, fold_got = phase_stress(
+            tally, tmp, S, count_kmers, card)
+        lsm_got = phase_lsm(tally, S, count_kmers, bench_path, bench_fold,
+                            stress_path, stress_fold, card)
+        os.remove(stress_path)
+        del stress_fold
+        phase_multibank(tally, tmp, S, reads)
+        phase_dbgh5(tally, tmp, S, bench_path, truth)
+        phase_bitonic(tally, S, torch, truth)
+    log(f"launches in the stress count: fold {fold_got}, LSM {lsm_got}")
+    err_s = phase_shapes(torch, S, tally.shapes)
     for name in err:
         err[name] = max(err[name], err_t[name], err_s[name])
     log(f"total {time.time() - t_all:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": err[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name in REPLACES]
+                "replaces": REPLACES[name],
+                "launches": tally.launches[name],
+                "max_abs_err": err[name], **times[name]}
+               for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

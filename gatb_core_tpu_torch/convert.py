@@ -5,7 +5,10 @@ fold accumulator. The JAX package hands them over as numpy arrays:
 a table is ``(planes, counts, n)`` with ``planes`` a tuple of (C,) uint32
 limb planes (most significant first), ``counts`` (C,) int32 and ``n`` the
 number of live rows; a result's ``solid_kmers`` is (N, W) uint32. The port
-keeps planes as one (W, C) int32 tensor holding the same bit patterns.
+keeps planes as one (W, C) int32 tensor holding the same bit patterns. A
+multibank table adds B count columns (a tuple there, one (B, C) tensor
+here); a row-major ``CountTable`` and a ``MultiBankCountResult`` have the
+same fields on both sides.
 """
 
 from __future__ import annotations
@@ -59,3 +62,59 @@ def kmers_to_torch(kmers, device="cpu") -> torch.Tensor:
 def kmers_to_numpy(planes: torch.Tensor) -> np.ndarray:
     """(W, N) planes -> (N, W) uint32 rows."""
     return np.ascontiguousarray(u32_to_numpy(planes).T)
+
+
+def table_multi_to_torch(planes, counts_list, n, device="cpu"):
+    """JAX-layout multibank table (tuple of (C,) uint32 planes, tuple of B
+    (C,) int32 count columns, n) -> ((W, C) int32 planes, (B, C) int32
+    counts, 0-d int32 n) on ``device``."""
+    counts = np.stack([np.asarray(c, np.int32) for c in counts_list])
+    return (planes_to_torch(planes, device),
+            torch.from_numpy(counts).to(device),
+            torch.tensor(int(n), dtype=torch.int32, device=device))
+
+
+def table_multi_to_numpy(planes: torch.Tensor, counts: torch.Tensor, n):
+    """Port multibank table -> (tuple of uint32 planes, tuple of B int32
+    count columns, int n)."""
+    c = counts.detach().cpu().numpy()
+    return planes_to_numpy(planes), tuple(c[i] for i in range(c.shape[0])), \
+        int(n)
+
+
+def count_table_to_torch(kmers, counts, n, device="cpu"):
+    """Row-major CountTable of the JAX package, as numpy arrays (kmers
+    (C, W) uint32, counts (C,) int32, n) -> the port's CountTable."""
+    from .ops.sortops import CountTable
+
+    return CountTable(
+        u32_to_torch(np.asarray(kmers, np.uint32), device),
+        torch.from_numpy(np.asarray(counts, np.int32).copy()).to(device),
+        torch.tensor(int(n), dtype=torch.int32, device=device))
+
+
+def count_table_to_numpy(table):
+    """The port's CountTable -> (kmers (C, W) uint32, counts (C,) int32,
+    int n), the fields of the JAX package's CountTable as numpy arrays."""
+    return (u32_to_numpy(table.kmers), table.counts.detach().cpu().numpy(),
+            int(table.n))
+
+
+def multibank_result_from_numpy(kmers, counts_per_bank, counts_sum,
+                                solid_mask, info):
+    """Fields of a JAX-package MultiBankCountResult (numpy arrays and the
+    info dict) -> the port's MultiBankCountResult."""
+    from .kmer.counting import MultiBankCountResult
+
+    return MultiBankCountResult(
+        np.asarray(kmers, np.uint32), np.asarray(counts_per_bank, np.int32),
+        np.asarray(counts_sum, np.int64), np.asarray(solid_mask, bool),
+        dict(info))
+
+
+def multibank_result_to_numpy(res):
+    """A MultiBankCountResult -> (kmers, counts_per_bank, counts_sum,
+    solid_mask, info), the order of the JAX package's constructor."""
+    return (np.asarray(res.kmers), np.asarray(res.counts_per_bank),
+            np.asarray(res.counts_sum), np.asarray(res.solid_mask),
+            dict(res.info))

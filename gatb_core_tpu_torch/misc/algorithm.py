@@ -45,3 +45,24 @@ class Algorithm:
         props.add(0, self.name)
         props.update(self.get_info(), depth=1)
         return props
+
+
+class Tool(Algorithm):
+    """CLI tool base (Tool.hpp:79-251): parse args -> run -> dump info."""
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.parser = self.build_parser()
+
+    def build_parser(self):  # pragma: no cover - abstract
+        import argparse
+
+        return argparse.ArgumentParser(prog=self.name)
+
+    def main(self, argv=None) -> int:
+        args = self.parser.parse_args(argv)
+        self.input.update(vars(args))
+        self.run()
+        if self.input.get("verbose", 1):
+            print(self.get_properties().dump_raw())
+        return 0

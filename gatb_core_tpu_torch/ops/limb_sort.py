@@ -10,7 +10,12 @@ level are the hand-written CUDA kernels of ``csrc/limb_sort.cu``:
 - ``tile_merge`` (``tile_merge_plain``) replaces ``_tile_merge_kernel``
   (pallas_sort.py:181);
 - ``merge_stage`` (``merge_stage_plain``) replaces the cross-tile stages of
-  ``_merge_sorted_runs`` (pallas_sort.py:204, jnp there).
+  ``_merge_sorted_runs`` (pallas_sort.py:204, jnp there);
+- ``bitonic_u64`` (wrapper ``bitonic_sort_u64``, plain twin
+  ``bitonic_sort_u64_plain``) replaces ``_bitonic_kernel``
+  (pallas_sort.py:45, via ``bitonic_sort_u64`` :343): the whole network
+  over (hi, lo) pairs in one launch. Nothing on the counting path calls it,
+  as in the JAX package.
 
 Planes are one (P, N) int32 tensor holding uint32 bit patterns, plane 0
 most significant; rows order as big-endian unsigned integers. N is a power
@@ -41,8 +46,9 @@ _BIAS = -(1 << 31)            # x ^ _BIAS orders int32 storage as uint32
 
 # kernel launches made through the wrappers (CUDA tensors only), and the
 # distinct argument shapes they launched with: (P, N, tile) for the tile
-# kernels, (P, N, run, j) for merge_stage
-launches = {"tile_sort": 0, "tile_merge": 0, "merge_stage": 0}
+# kernels, (P, N, run, j) for merge_stage, (N,) for bitonic_u64
+launches = {"tile_sort": 0, "tile_merge": 0, "merge_stage": 0,
+            "bitonic_u64": 0}
 launch_shapes: dict[str, set] = {name: set() for name in launches}
 
 
@@ -97,7 +103,9 @@ def _lib() -> ctypes.CDLL:
     lib.limb_tile_sort.argtypes = [vp, ll, i, i, vp]
     lib.limb_tile_merge.argtypes = [vp, ll, i, i, vp]
     lib.limb_merge_stage.argtypes = [vp, ll, i, ll, ll, vp]
-    for fn in (lib.limb_tile_sort, lib.limb_tile_merge, lib.limb_merge_stage):
+    lib.limb_bitonic_u64.argtypes = [vp, vp, ll, vp]
+    for fn in (lib.limb_tile_sort, lib.limb_tile_merge, lib.limb_merge_stage,
+               lib.limb_bitonic_u64):
         fn.restype = ctypes.c_int
     return lib
 
@@ -182,6 +190,38 @@ def merge_stage(planes: torch.Tensor, run: int, j: int) -> torch.Tensor:
     launches["merge_stage"] += 1
     launch_shapes["merge_stage"].add((P, n, run, j))
     return x
+
+
+def bitonic_sort_u64(hi: torch.Tensor, lo: torch.Tensor):
+    """Sort flat (N,) uint32 (hi, lo) pairs (int32 storage) ascending as
+    unsigned 64-bit values; all-ones pairs go to the tail. N must be a
+    power of two and a multiple of 128. Returns new (hi, lo) tensors.
+
+    On a CUDA tensor this is one launch of the ``bitonic_u64`` kernel (it
+    raises if the kernel cannot be built or launched); on a CPU tensor the
+    plain twin."""
+    if hi.shape != lo.shape or hi.dim() != 1:
+        raise ValueError("bitonic_sort_u64: hi and lo must be flat and of "
+                         "one size")
+    if hi.dtype != torch.int32 or lo.dtype != torch.int32:
+        raise TypeError("bitonic_sort_u64: planes must be int32 storage")
+    n = hi.shape[0]
+    if n < 1 or n & (n - 1):
+        raise ValueError("bitonic_sort_u64: size must be a power of two")
+    if n % 128:
+        raise ValueError("bitonic_sort_u64: size must be a multiple of 128")
+    if hi.device != lo.device:
+        raise ValueError("bitonic_sort_u64: hi and lo on different devices")
+    if not _route(hi):
+        return bitonic_sort_u64_plain(hi, lo)
+    oh, ol = hi.contiguous().clone(), lo.contiguous().clone()
+    with torch.cuda.device(oh.device):
+        rc = _lib().limb_bitonic_u64(oh.data_ptr(), ol.data_ptr(), n,
+                                     _stream(oh))
+    _check(rc, "bitonic_u64")
+    launches["bitonic_u64"] += 1
+    launch_shapes["bitonic_u64"].add((n,))
+    return oh, ol
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +322,18 @@ def sort_u32_limbs_plain(planes) -> torch.Tensor:
     """Full lexicographic sort of the rows (see tile_sort_plain)."""
     x = as_planes(planes)
     return tile_sort_plain(x, x.shape[1])
+
+
+def bitonic_sort_u64_plain(hi: torch.Tensor, lo: torch.Tensor):
+    """Plain version of ``bitonic_sort_u64`` on any device: one
+    ``torch.sort`` of the pairs joined into int64 keys (top bit flipped, so
+    the signed order is the unsigned one)."""
+    top = torch.iinfo(torch.int64).min
+    m32 = 0xFFFFFFFF
+    key = (((hi.to(torch.int64) & m32) << 32) | (lo.to(torch.int64) & m32)) \
+        ^ top
+    key = torch.sort(key).values ^ top
+    return (key >> 32).to(torch.int32), key.to(torch.int32)
 
 
 def _compare_exchange(v: torch.Tensor, flip: bool) -> None:

@@ -1,10 +1,24 @@
 """Sort / distinct-reduce primitives over limb-plane k-mer keys.
 
-Port of the counting half of gatb_core_tpu/ops/sortops.py (lines 439-823):
-k-mers ride as one (P, N) int32 tensor of uint32 limb planes (plane 0
-most significant, see ops/limb_sort.py), sorted by the hand-written
-bitonic kernels, then reduced to a distinct table by run detection and a
-weight prefix sum.
+Port of the counting half of gatb_core_tpu/ops/sortops.py (lines 52-224
+and 439-823): k-mers ride as one (P, N) int32 tensor of uint32 limb planes
+(plane 0 most significant, see ops/limb_sort.py), sorted by the
+hand-written bitonic kernels, then reduced to a distinct table by run
+detection and a weight prefix sum. The row-major entry points of the JAX
+module (``sort_by_kmer``, ``count_sorted``, ``count_batch``,
+``merge_tables``, ``pallas_sort_rows``) take and return (N, W) rows and
+wrap the plane-major ones.
+
+There is no ``use_pallas`` argument and no environment switch: every sort
+and merge here goes through ``limb_sort.sort_u32_limbs`` /
+``merge_sorted_runs``, which launch the CUDA kernels on a CUDA tensor and
+run their plain versions on a CPU tensor. The bitonic network carries no
+payload channel, so payloads (counts, bank ids) ride as least-significant
+key planes; every caller sums them per equal-k-mer run, so their order
+inside a run does not reach a result. The sorts need a power-of-two row
+count: inputs are padded with all-ones sentinel rows, so capacities along
+the way can differ from the JAX package's exact-size ``lax.sort`` path
+while live rows, counts and ``n`` are equal.
 
 The JAX reduce avoids gathers and scatters (slow on the TPU) and compacts
 the run-end rows with a sort keyed on the weight cumsum
@@ -39,9 +53,11 @@ def _next_pow2(n: int) -> int:
 
 
 class CountTable(NamedTuple):
-    """Fixed-capacity sorted table of distinct k-mers with counts.
+    """Fixed-capacity sorted table of distinct k-mers with counts
+    (row-major, the layout of the JAX package's CountTable).
 
-    kmers:  (W, C) int32 limb planes, ascending; rows >= n are sentinels
+    kmers:  (C, W) int32 limbs (uint32 patterns), ascending integer order;
+            rows >= n are all-ones padding
     counts: (C,) int32 abundances (0 on padding rows)
     n:      () int32 number of live rows
     """
@@ -52,11 +68,111 @@ class CountTable(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.kmers.shape[1]
+        return self.kmers.shape[0]
 
     @property
     def width(self) -> int:
-        return self.kmers.shape[0]
+        return self.kmers.shape[1]
+
+
+def _rows_i32(kmers: torch.Tensor) -> torch.Tensor:
+    """(..., W) limbs, int32 storage or zero-extended int64 (what
+    extraction returns) -> (N, W) int32 storage."""
+    return kmers.reshape(-1, kmers.shape[-1]).to(I32)
+
+
+def pallas_sort_rows(flat: torch.Tensor, inv: torch.Tensor,
+                     spare_bits: bool, *payloads):
+    """Sort (N, W) k-mer rows (+ optional (N,) payloads) with the limb-sort
+    kernels; the row-major wrapper over ``sort_u32_limbs`` (the name is the
+    JAX module's, where this is the Pallas route). Pads N to a power of two
+    (at least 256) with all-ones sentinel rows.
+
+    Returns (sorted_kmers (P, W), sorted_inv (P,) or None with spare_bits,
+    *sorted_payloads int32) with P = next_pow2(N); sentinel and invalid
+    rows ride to the tail. With ``spare_bits`` the caller has already
+    encoded invalid rows as all-ones; otherwise ``inv`` leads as a key.
+    Payloads ride as least-significant key planes: pass only payloads
+    whose order within equal-k-mer runs is irrelevant."""
+    flat = _rows_i32(flat)
+    n, w = flat.shape
+    p = _next_pow2(max(n, 256))
+    n_keys = w if spare_bits else w + 1
+    planes = torch.full((n_keys + len(payloads), p), SENTINEL, dtype=I32,
+                        device=flat.device)
+    k0 = n_keys - w
+    if not spare_bits:
+        planes[0, :n] = inv.to(I32)
+    planes[k0:n_keys, :n] = flat.T
+    for i, q in enumerate(payloads):
+        planes[n_keys + i, :n] = q.to(I32)
+        planes[n_keys + i, n:] = 0
+    sort_u32_limbs(planes)
+    si = None if spare_bits else planes[0] != 0
+    sk = planes[k0:n_keys].T.contiguous()
+    return (sk, si) + tuple(planes[n_keys + i]
+                            for i in range(len(payloads)))
+
+
+def sort_by_kmer(kmers: torch.Tensor, invalid: torch.Tensor, *payloads):
+    """Sort rows by (invalid, kmer) ascending; invalid rows go to the tail.
+
+    kmers: (N, W); invalid: (N,) bool; payloads: extra (N,) tensors
+    reordered alongside (as least-significant keys, see
+    ``pallas_sort_rows``). Returns (kmers, invalid, *payloads) sorted, N
+    rows each: the power-of-two padding sorts behind every input row and
+    is cut off again."""
+    for q in payloads:
+        if q.dim() != 1:
+            raise ValueError("payloads must be rank-1")
+    n = kmers.shape[0]
+    out = pallas_sort_rows(kmers, invalid, False, *payloads)
+    return tuple(x[:n] for x in out)
+
+
+def count_sorted(sorted_kmers: torch.Tensor, inv: torch.Tensor,
+                 weights: torch.Tensor | None = None) -> CountTable:
+    """Reduce a sorted (kmer, invalid) stream of (C, W) rows into a
+    CountTable of the same capacity; invalid rows all sit at the tail.
+
+    weights defaults to 1 per valid row (raw occurrence counting); pass
+    existing counts when merging tables."""
+    planes = _rows_i32(sorted_kmers).T.contiguous()
+    out_p, counts, n, _ = count_sorted_planes(planes, inv, weights=weights)
+    return CountTable(out_p.T.contiguous(), counts, n)
+
+
+def count_batch(kmers: torch.Tensor, valid: torch.Tensor,
+                spare_bits: bool = False) -> CountTable:
+    """Flatten, sort, and reduce one extracted batch into a CountTable.
+
+    With ``spare_bits=True`` (top limb has unused high bits, i.e.
+    2k % 32 != 0), invalid rows are encoded as the all-ones sentinel,
+    which no valid k-mer can equal, and the sort drops the validity key.
+    Capacity is the row count padded to the next power of two."""
+    flat = _rows_i32(kmers)
+    inv = ~valid.reshape(-1)
+    if spare_bits:
+        flat = torch.where(inv[:, None], torch.full_like(flat, SENTINEL),
+                           flat)
+        sk, _ = pallas_sort_rows(flat, inv, True)
+        si = torch.arange(sk.shape[0], device=sk.device) >= valid.sum()
+        return count_sorted(sk, si)
+    sk, si = pallas_sort_rows(flat, inv, False)
+    return count_sorted(sk, si)
+
+
+def merge_tables(a: CountTable, b: CountTable) -> CountTable:
+    """Merge two sorted count tables (capacity = cap_a + cap_b); the
+    counts ride the sort as the least significant key and are summed per
+    run."""
+    dev = a.kmers.device
+    kmers = torch.cat([a.kmers, b.kmers], dim=0)
+    counts = torch.cat([a.counts, b.counts], dim=0)
+    live = torch.cat([torch.arange(a.capacity, device=dev) < a.n,
+                      torch.arange(b.capacity, device=dev) < b.n])
+    sk, si, sc = sort_by_kmer(kmers, ~live, counts)
+    return count_sorted(sk, si, weights=sc)
 
 
 def _run_stats(planes: torch.Tensor, inv: torch.Tensor):
@@ -77,26 +193,27 @@ def _run_stats(planes: torch.Tensor, inv: torch.Tensor):
 
 
 def _cumw(inv: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 cumsum of masked weights. Sampled at the run END
-    rows, adjacent differences give per-run totals."""
+    """Inclusive int32 cumsum (last axis) of masked weights. Sampled at
+    the run END rows, adjacent differences give per-run totals."""
     w = torch.where(inv, torch.zeros_like(weights, dtype=I32),
                     weights.to(I32))
-    return torch.cumsum(w, dim=0, dtype=I32)
+    return torch.cumsum(w, dim=-1, dtype=I32)
 
 
 def _diff_counts(cwe: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
-    prev = torch.cat([torch.zeros((1,), dtype=I32, device=cwe.device),
-                      cwe[:-1]])
+    """Per-run totals from the cumsum sampled at run ends (last axis)."""
+    prev = torch.cat([torch.zeros(cwe.shape[:-1] + (1,), dtype=I32,
+                                  device=cwe.device), cwe[..., :-1]], dim=-1)
     return torch.where(live, cwe - prev, torch.zeros_like(cwe))
 
 
 def _compact_ends(planes: torch.Tensor, cumw: torch.Tensor,
                   is_end: torch.Tensor, cap_out: int):
-    """Move each run's END row (k-mer + its weight cumsum) to its run
+    """Move each run's END row (k-mer + its weight cumsum(s)) to its run
     position: a prefix sum over the end flags gives the destination, ends
-    past cap_out and non-end rows go to a dump slot. Returns
-    (out_planes (P, cap_out), cwe (cap_out,)); unfilled rows are
-    sentinels / 0."""
+    past cap_out and non-end rows go to a dump slot. ``cumw`` is (N,) or,
+    with one cumsum per bank, (B, N). Returns (out_planes (P, cap_out),
+    cwe (cap_out,) or (B, cap_out)); unfilled rows are sentinels / 0."""
     P = planes.shape[0]
     dev = planes.device
     pos = torch.cumsum(is_end, dim=0) - 1
@@ -104,9 +221,10 @@ def _compact_ends(planes: torch.Tensor, cumw: torch.Tensor,
                        torch.full_like(pos, cap_out))
     out = torch.full((P, cap_out + 1), SENTINEL, dtype=I32, device=dev)
     out.index_copy_(1, dest, planes)
-    cwe = torch.zeros((cap_out + 1,), dtype=I32, device=dev)
-    cwe.index_copy_(0, dest, cumw)
-    return out[:, :cap_out].contiguous(), cwe[:cap_out]
+    cwe = torch.zeros(cumw.shape[:-1] + (cap_out + 1,), dtype=I32,
+                      device=dev)
+    cwe.index_copy_(cumw.dim() - 1, dest, cumw)
+    return out[:, :cap_out].contiguous(), cwe[..., :cap_out]
 
 
 def count_sorted_planes(planes, inv: torch.Tensor,
@@ -138,6 +256,56 @@ def count_sorted_planes(planes, inv: torch.Tensor,
     out_planes, cwe = _compact_ends(x, cumw, is_end, cap_out)
     live = torch.arange(cap_out, device=x.device) < n
     return out_planes, _diff_counts(cwe, live), n, n > cap_out
+
+
+def count_sorted_planes_multi(planes, inv: torch.Tensor,
+                              weights: torch.Tensor,
+                              cap_out: int | None = None):
+    """Multi-weight variant of count_sorted_planes: one run detection, one
+    count column per bank (the reference's multibank k-mer matrices,
+    PartitionsCommand.cpp:1855-2100, in one pass).
+
+    weights: (B, N) int32 per-bank weights. Returns (out_planes,
+    counts (B, cap_out) int32, n, overflow)."""
+    x = as_planes(planes)
+    if cap_out is None:
+        cap_out = x.shape[1]
+    _, _, n, is_end = _run_stats(x, inv)
+    out_planes, cwes = _compact_ends(x, _cumw(inv[None, :], weights),
+                                     is_end, cap_out)
+    live = torch.arange(cap_out, device=x.device) < n
+    return out_planes, _diff_counts(cwes, live[None, :]), n, n > cap_out
+
+
+def _pad_table_to(p: torch.Tensor, c: torch.Tensor, cap: int):
+    """Pad (W, C) planes with sentinel rows and (..., C) counts with zeros
+    up to ``cap`` rows."""
+    pad = cap - p.shape[1]
+    if pad:
+        p = torch.cat([p, torch.full((p.shape[0], pad), SENTINEL, dtype=I32,
+                                     device=p.device)], dim=1)
+        c = torch.cat([c.to(I32), torch.zeros(c.shape[:-1] + (pad,),
+                                              dtype=I32, device=c.device)],
+                      dim=-1)
+    return p, c
+
+
+def merge_tables_planes_multi(pa, ca: torch.Tensor, na, pb, cb: torch.Tensor,
+                              nb, cap_out: int):
+    """merge_tables_planes with B per-bank count columns ((B, C) tensors)
+    riding the merge as extra least-significant key planes (each column is
+    summed per run downstream, so the order within equal-k-mer runs is
+    irrelevant). Returns (planes, counts (B, cap_out), n, overflow)."""
+    pa, pb = as_planes(pa), as_planes(pb)
+    cap = _next_pow2(max(pa.shape[1], pb.shape[1]))
+    pa, ca = _pad_table_to(pa, ca, cap)
+    pb, cb = _pad_table_to(pb, cb, cap)
+    w = pa.shape[0]
+    cat = torch.cat([torch.cat([pa, pb], dim=1),
+                     torch.cat([ca.to(I32), cb.to(I32)], dim=1)])
+    merge_sorted_runs(cat, cap)
+    inv = torch.arange(2 * cap, device=cat.device) >= (na + nb)
+    return count_sorted_planes_multi(cat[:w], inv, cat[w:], cap_out=cap_out)
 
 
 def _encode_invalid(planes: torch.Tensor, valid: torch.Tensor,
@@ -189,6 +357,30 @@ def count_planes(planes, valid: torch.Tensor,
     return count_sorted_planes(kplanes, inv, weights=w_, cap_out=cap_out)
 
 
+def count_planes_multibank(planes, valid: torch.Tensor,
+                           bank_ids: torch.Tensor, nb_banks: int,
+                           spare_bits: bool = False,
+                           cap_out: int | None = None):
+    """One-pass multibank sort + reduce: k-mers from all banks sort
+    together with their bank id riding as the least significant key plane;
+    the reduce yields one count column per bank (reference per-bank k-mer
+    matrices, PartitionsCommand.cpp:1855-2100, in ONE pass over the union).
+    Returns (out_planes, counts (nb_banks, cap_out), n, overflow)."""
+    enc, extra = _encode_invalid(planes, valid, spare_bits)
+    n_keys = enc.shape[0]
+    enc = torch.cat([enc, bank_ids.to(I32)[None, :]])
+    sort_planes(enc)
+    if extra:
+        inv = enc[0] != 0
+        kplanes = enc[1:n_keys]
+    else:
+        inv = torch.arange(enc.shape[1], device=enc.device) >= valid.sum()
+        kplanes = enc[:n_keys]
+    banks = torch.arange(nb_banks, dtype=I32, device=enc.device)
+    weights = (enc[n_keys][None, :] == banks[:, None]).to(I32)
+    return count_sorted_planes_multi(kplanes, inv, weights, cap_out=cap_out)
+
+
 def pad_planes_pow2(planes, counts: torch.Tensor | None = None,
                     min_cap: int = 256):
     """Pad (P, n) planes to the next power of two with sentinel rows
@@ -218,9 +410,9 @@ def merge_tables_planes(pa, ca: torch.Tensor, na, pb, cb: torch.Tensor, nb,
     overflow) at capacity cap_out.
     """
     pa, pb = as_planes(pa), as_planes(pb)
-    cap = max(pa.shape[1], pb.shape[1])
-    pa, ca, _ = pad_planes_pow2(pa, ca, min_cap=cap)
-    pb, cb, _ = pad_planes_pow2(pb, cb, min_cap=cap)
+    cap = _next_pow2(max(pa.shape[1], pb.shape[1]))
+    pa, ca = _pad_table_to(pa, ca, cap)
+    pb, cb = _pad_table_to(pb, cb, cap)
     w = pa.shape[0]
     cat = torch.empty((w + 1, 2 * cap), dtype=I32, device=pa.device)
     cat[:w, :cap] = pa

@@ -1,0 +1,358 @@
+"""Persistent hierarchical storage: HDF5-backed Storage/Group tree.
+
+Counting-stage port of gatb_core_tpu/storage/hdf5.py (host code: numpy and
+h5py); the Bloom, debloom and MPHF savers and loaders of that module come
+with the postsolid graph build. h5py is imported when a Storage is opened,
+so the module imports where h5py is not installed.
+
+Equivalent of gatb-core's storage layer (tools/storage/impl/
+Storage.hpp:166-669, StorageHDF5.hpp): a Storage is a tree of Groups holding
+typed collections (datasets) and string properties; every algorithm persists
+its artifacts into a group, and the file doubles as the checkpoint for
+stage-wise resume (Graph 'state' property, debruijn/impl/Graph.hpp:1010-1030).
+
+Layout written for a graph build (matches the reference structure,
+Graph.cpp:424-428 + CountProcessorDump.hpp:94 + CountProcessorHistogram.hpp:147):
+
+  /                    attrs: state, kmer_size, nb_solid_kmers
+  /configuration       attr 'xml' = config dump
+  /dsk/solid           dataset: compound {value: uint64[words], abundance: i32}
+  /histogram/histogram dataset: compound {index: u64, abundance: u64}
+  /histogram/cutoff    dataset: u64[1]
+  /minimizers          repartition table
+
+Mapping note: k-mer values are stored as little-endian uint64 word arrays,
+the exact in-memory layout of the reference's LargeInt<words>
+(tools/math/LargeInt.hpp), converted from the engine's big-endian uint32
+limbs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# Graph build state bits (debruijn/impl/Graph.hpp:1010-1030)
+STATE_INIT_DONE = 1 << 0
+STATE_CONFIGURATION_DONE = 1 << 1
+STATE_SORTING_COUNT_DONE = 1 << 2
+STATE_BLOOM_DONE = 1 << 3
+STATE_DEBLOOM_DONE = 1 << 4
+STATE_BRANCHING_DONE = 1 << 5
+STATE_MPHF_DONE = 1 << 6
+STATE_ADJACENCY_DONE = 1 << 7
+STATE_NONSIMPLE_CACHE = 1 << 8
+
+
+def limbs_to_words64(limbs: np.ndarray) -> np.ndarray:
+    """(N, W32) big-endian uint32 limbs -> (N, words) little-endian uint64
+    words (reference LargeInt layout)."""
+    limbs = np.asarray(limbs, dtype=np.uint32)
+    n, w32 = limbs.shape
+    if w32 % 2:  # pad a zero most-significant limb
+        limbs = np.concatenate(
+            [np.zeros((n, 1), np.uint32), limbs], axis=1)
+        w32 += 1
+    words = w32 // 2
+    le = limbs[:, ::-1].astype(np.uint64)  # little-endian u32 order
+    out = np.zeros((n, words), np.uint64)
+    for j in range(words):
+        out[:, j] = le[:, 2 * j] | (le[:, 2 * j + 1] << np.uint64(32))
+    return out
+
+
+def words64_to_limbs(words: np.ndarray, w32: int) -> np.ndarray:
+    """Inverse of limbs_to_words64. Accepts (N,) for single-word values
+    (the reference stores LargeInt<1> as scalar u64 columns)."""
+    words = np.asarray(words, dtype=np.uint64)
+    if words.ndim == 1:
+        words = words[:, None]
+    n, nw = words.shape
+    le = np.zeros((n, 2 * nw), np.uint32)
+    for j in range(nw):
+        le[:, 2 * j] = (words[:, j] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        le[:, 2 * j + 1] = (words[:, j] >> np.uint64(32)).astype(np.uint32)
+    be = le[:, ::-1]
+    return be[:, -w32:] if be.shape[1] >= w32 else np.concatenate(
+        [np.zeros((n, w32 - be.shape[1]), np.uint32), be], axis=1)
+
+
+class Group:
+    """Thin wrapper over an h5py group with reference-style properties."""
+
+    def __init__(self, h5group):
+        self._g = h5group
+
+    def group(self, name: str) -> "Group":
+        if name in self._g:
+            return Group(self._g[name])
+        return Group(self._g.create_group(name))
+
+    def set_property(self, key: str, value) -> None:
+        self._g.attrs[key] = value
+
+    def get_property(self, key: str, default=None):
+        return self._g.attrs.get(key, default)
+
+    # gzip only small datasets: the reference stores every collection
+    # UNCOMPRESSED (verified on its dbgh5 output), and compressing a
+    # solid table of hundreds of MB is pure loss against the reference's
+    # contiguous write
+    COMPRESS_MAX_BYTES = 8 << 20
+
+    def set_dataset(self, name: str, data: np.ndarray) -> None:
+        if name in self._g:
+            del self._g[name]
+        data = np.asarray(data)
+        if data.nbytes <= self.COMPRESS_MAX_BYTES:
+            self._g.create_dataset(name, data=data, compression="gzip",
+                                   compression_opts=1)
+        else:
+            self._g.create_dataset(name, data=data)
+
+    def get_dataset(self, name: str) -> np.ndarray | None:
+        if name not in self._g:
+            return None
+        return self._g[name][...]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._g
+
+    def ostream(self, name: str) -> "OStream":
+        """Raw byte output stream (Storage::ostream equivalent)."""
+        return OStream(self, name)
+
+    def istream(self, name: str) -> "IStream":
+        """Raw byte input stream (Storage::istream equivalent)."""
+        return IStream(self, name)
+
+
+class OStream:
+    """Raw byte output stream inside a Group (Storage::ostream,
+    tools/storage/impl/Storage.cpp — used by Repartitor::save /
+    Configuration::save in the reference; Leon block streams here)."""
+
+    def __init__(self, group: "Group", name: str):
+        self._group = group
+        self._name = name
+        self._buf = bytearray()
+
+    def write(self, data: bytes) -> None:
+        self._buf += data
+
+    def flush(self) -> None:
+        self._group.set_dataset(self._name,
+                                np.frombuffer(bytes(self._buf), np.uint8))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.flush()
+
+
+class IStream:
+    """Raw byte input stream over a Group dataset (Storage::istream)."""
+
+    def __init__(self, group: "Group", name: str):
+        data = group.get_dataset(name)
+        self._data = b"" if data is None else np.asarray(data).tobytes()
+        self._pos = 0
+
+    def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            n = len(self._data) - self._pos
+        out = self._data[self._pos:self._pos + n]
+        self._pos += len(out)
+        return out
+
+    def seek(self, pos: int) -> None:
+        self._pos = pos
+
+    def tell(self) -> int:
+        return self._pos
+
+
+class Storage(Group):
+    """HDF5 storage root (StorageFactory STORAGE_HDF5 equivalent)."""
+
+    def __init__(self, path: str, mode: str = "a"):
+        import h5py
+
+        self._f = h5py.File(path, mode)
+        super().__init__(self._f)
+        self.path = path
+
+    def close(self) -> None:
+        self._f.close()
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ---- graph-build state machine helpers ---------------------------
+    def get_state(self) -> int:
+        return prop_int(self, "state", 0)
+
+    def set_state_bit(self, bit: int) -> None:
+        self.set_property("state", np.uint64(self.get_state() | bit))
+
+    def check_state(self, bit: int) -> bool:
+        return bool(self.get_state() & bit)
+
+
+def count_dtype(words: int) -> np.dtype:
+    """Compound dtype of a Count record {value, abundance}
+    (kmer/impl/Model.hpp:1568-1590)."""
+    return np.dtype([("value", np.uint64, (words,)), ("abundance", np.int32)])
+
+
+def save_solid(storage: Storage, kmers_limbs: np.ndarray,
+               counts: np.ndarray, kmer_size: int) -> None:
+    """Write the solid count table into /dsk/solid."""
+    words = max(1, (kmer_size + 31) // 32)
+    vals = limbs_to_words64(kmers_limbs)
+    if vals.shape[1] < words:
+        vals = np.concatenate(
+            [vals, np.zeros((len(vals), words - vals.shape[1]), np.uint64)],
+            axis=1)
+    rec = np.zeros(len(counts), dtype=count_dtype(words))
+    rec["value"] = vals[:, :words]
+    rec["abundance"] = counts
+    dsk = storage.group("dsk")
+    dsk.set_dataset("solid", rec)
+    dsk.set_property("nb_items", np.uint64(len(rec)))
+    storage.set_property("nb_solid_kmers", np.uint64(len(rec)))
+    storage.set_property("kmer_size", np.uint64(kmer_size))
+    storage.set_state_bit(STATE_SORTING_COUNT_DONE)
+
+
+def _read_count_records(ds) -> np.ndarray:
+    """Read one Count dataset, tolerating the reference's >64-bit value
+    fields. At k>32 spans the reference writes `value` as an HDF5
+    native int128/int256 (LargeInt<words>, CountProcessorDump.hpp:94)
+    which h5py cannot map to a numpy dtype ('<i16' TypeError); the raw
+    chunk bytes are then parsed directly — value = little-endian u64
+    words at offset 0, abundance i32 after them (+ struct padding)."""
+    try:
+        return ds[...]
+    except TypeError:
+        pass
+    sid = ds.id
+    t = sid.get_type()
+    itemsize = t.get_size()
+    val_bytes = t.get_member_type(0).get_size()
+    words = val_bytes // 8
+    n = ds.shape[0]
+    import zlib
+
+    plist = sid.get_create_plist()
+    if plist.get_layout() == 2:     # chunked
+        chunks = []
+        for ci in range(sid.get_num_chunks()):
+            info = sid.get_chunk_info(ci)
+            _, raw = sid.read_direct_chunk(info.chunk_offset)
+            if ds.compression == "gzip":
+                raw = zlib.decompress(raw)
+            chunks.append((info.chunk_offset[0], raw))
+        chunks.sort()
+        buf = b"".join(raw for _, raw in chunks)
+    else:                            # contiguous
+        off = sid.get_offset()
+        with open(ds.file.filename, "rb") as f:
+            f.seek(off)
+            buf = f.read(n * itemsize)
+    dt = np.dtype({"names": ["value", "abundance"],
+                   "formats": [("<u8", (words,)), "<i4"],
+                   "offsets": [0, val_bytes], "itemsize": itemsize})
+    return np.frombuffer(buf, dtype=dt)[:n]
+
+
+def load_solid(storage: Storage):
+    """Read /dsk/solid back as (limbs uint32 (N,W32), counts int32).
+
+    Handles both this engine's layout (one dataset) and a reference
+    dbgh5 .h5, where dsk/solid is a Partition group of per-minimizer-
+    partition datasets 0..P-1 (CountProcessorDump.hpp:94) that are only
+    locally sorted — the concatenation is re-sorted globally."""
+    import h5py
+
+    k = prop_int(storage, "kmer_size")
+    w32 = (2 * k + 31) // 32
+    dsk = storage.group("dsk")
+    node = dsk._g.get("solid")
+    if isinstance(node, h5py.Group):  # reference partition layout
+        parts = sorted(node.keys(), key=int)
+        rec = np.concatenate([_read_count_records(node[p])
+                              for p in parts]) if parts \
+            else np.zeros(0, count_dtype(max(1, (k + 31) // 32)))
+        vals = rec["value"]
+        if vals.ndim == 1:
+            vals = vals[:, None]
+        limbs = words64_to_limbs(vals, w32)
+        counts = rec["abundance"].astype(np.int32)
+        order = np.lexsort(tuple(limbs[:, j]
+                                 for j in range(w32 - 1, -1, -1)))
+        return limbs[order], counts[order]
+    rec = dsk.get_dataset("solid")
+    vals = rec["value"]
+    if vals.ndim == 1:
+        vals = vals[:, None]
+    limbs = words64_to_limbs(vals, w32)
+    return limbs, rec["abundance"].astype(np.int32)
+
+
+def save_histogram(storage: Storage, histogram) -> None:
+    g = storage.group("histogram")
+    pairs = histogram.to_pairs()[1:]  # rows 1..max (reference skips 0,
+    # Histogram::save iterates 1.._length, misc/impl/Histogram.cpp)
+    # exact reference compound layout: u32 index @0, u64 abundance @8,
+    # itemsize 16 (the aligned Entry struct) — byte-comparable datasets
+    rec = np.zeros(len(pairs), dtype=np.dtype(
+        {"names": ["index", "abundance"],
+         "formats": [np.uint32, np.uint64],
+         "offsets": [0, 8], "itemsize": 16}))
+    rec["index"] = pairs[:, 0]
+    rec["abundance"] = pairs[:, 1]
+    g.set_dataset("histogram", rec)
+    g.set_dataset("cutoff", np.asarray([histogram.cutoff], np.uint64))
+    g.set_property("first_peak", np.uint64(histogram.first_peak))
+
+
+def _attr_str(v) -> str:
+    """Normalize an HDF5 attribute to str: the reference writes every
+    property as a (1,)-shaped vlen string; ours are scalars."""
+    if isinstance(v, (np.ndarray, list, tuple)) and len(v) == 1:
+        v = v[0]
+    return v.decode() if isinstance(v, bytes) else str(v)
+
+
+def prop_int(g: Group, key: str, default: int = 0) -> int:
+    """Integer property tolerant of the reference's string-typed HDF5
+    attributes (gatb stores every property as a (1,) vlen string)."""
+    v = g.get_property(key, None)
+    if v is None:
+        return default
+    return int(_attr_str(v))
+
+
+def prop_str(g: Group, key: str, default: str = "") -> str:
+    v = g.get_property(key, None)
+    return default if v is None else _attr_str(v)
+
+
+def save_config(storage: Storage, info: dict) -> None:
+    g = storage.group("configuration")
+    lines = ["<config>"]
+    for key, val in sorted(info.items()):
+        lines.append(f"  <{key}>{val}</{key}>")
+    lines.append("</config>")
+    g.set_property("xml", "\n".join(lines))
+    for key, val in info.items():
+        if isinstance(val, (int, np.integer)):
+            g.set_property(key, np.int64(val))
+    storage.set_state_bit(STATE_CONFIGURATION_DONE)

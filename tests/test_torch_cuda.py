@@ -77,3 +77,45 @@ def test_count_on_card_matches_cpu(cuda):
     assert np.array_equal(on_card.solid_kmers, on_cpu.solid_kmers)
     assert np.array_equal(on_card.solid_counts, on_cpu.solid_counts)
     assert on_card.as_dict() == count_kmers_py(reads, 31, abundance_min=1)
+
+
+@pytest.mark.parametrize("n", [1 << 8, 1 << 14, 1 << 15, 1 << 19])
+def test_bitonic_u64_matches_plain(cuda, n):
+    g = torch.Generator().manual_seed(n)
+    hi = torch.randint(-4, 4, (n,), dtype=torch.int32, generator=g)
+    lo = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                       generator=g)
+    hi[::7] = -1                          # sentinel pairs
+    lo[::7] = -1
+    hi, lo = hi.to(cuda), lo.to(cuda)
+    before = S.launches["bitonic_u64"]
+    oh, ol = S.bitonic_sort_u64(hi, lo)
+    ph, pl = S.bitonic_sort_u64_plain(hi, lo)
+    assert torch.equal(oh, ph) and torch.equal(ol, pl)
+    assert S.launches["bitonic_u64"] == before + 1
+    assert (n,) in S.launch_shapes["bitonic_u64"]
+
+
+def test_lsm_count_and_fetches_on_card_match_cpu(cuda):
+    from gatb_core_tpu_torch.kmer import counting as tc
+
+    rng = np.random.default_rng(6)
+    genome = "".join(rng.choice(list("ACGT"), size=2000))
+    reads = [genome[i:i + 100] for i in range(0, 1900, 4)]
+    kw = dict(kmer_size=31, abundance_min=1, batch_reads=64,
+              superbatch_rows=1 << 14, carry_accumulator=False,
+              nb_passes=2)
+    on_card = count_kmers(BankStrings(*reads), device="cuda", **kw)
+    assert on_card.as_dict() == count_kmers_py(reads, 31, abundance_min=1)
+    # the three fetches of one device table agree
+    n = 3000
+    planes = torch.arange(2 * 4096, dtype=torch.int32,
+                          device=cuda).reshape(2, 4096).contiguous()
+    counts = (torch.arange(4096, dtype=torch.int32, device=cuda) % 300) + 1
+    whole = tc._fetch_table_whole(planes, counts, n, 2)
+    packed = tc._fetch_table(planes, counts, n, 2)
+    streamed = tc._StreamedTable(planes, counts, n, 2,
+                                 chunk_rows=1024).materialize()
+    for got in (packed, streamed):
+        assert np.array_equal(got[0], whole[0])
+        assert np.array_equal(got[1], whole[1])
