@@ -6,10 +6,10 @@
 
 With ``--profile`` it runs none of the phases below: it counts the stress
 bank once on the fold path and once on the LSM chain without the profiler
-(host clock, the run's stopwatches), then once on each under
-``torch.profiler``, and prints per path the wall time, the device time
-summed over kernels and copies, the busy share (device time over wall
-time) and the kernels by device time; the full lists go to
+(host clock, the run's stopwatches, the peak of device memory), then
+once on each under ``torch.profiler``, and prints per path the wall time,
+the device time summed over kernels and copies, the busy share (device
+time over wall time) and the kernels by device time; the full lists go to
 ``DIR/profile_<path>.txt`` (default ``chiprun_out``).
 
 Builds the CUDA kernels of the port from this checkout (nvcc), holds each
@@ -17,12 +17,16 @@ against its plain PyTorch version, then counts k-mers through the port's
 public entry points on synthetic banks and checks every result against a
 numpy ground truth computed here:
 
-  1. kernels: tile_sort, tile_merge and merge_stage bit for bit against
-     their plain versions, P in {2, 3, 4, 5, 9} planes, N from 2^10 to
-     2^25, random / heavy-duplicate / sentinel / all-equal inputs; the
-     full sort and merge_sorted_runs (run 2^24, and 3 x 2^26 rows at run
-     2^25) against the plain sort; bitonic_u64 against its plain version
-     for N from 2^8 to 2^22 on the same four kinds of input; then each
+  1. kernels: tile_sort, merge_partition (split arrays equal) and
+     merge_tiles bit for bit against their plain versions, P in {2, 3, 4,
+     5, 9} planes, N from 2^10 to 2^25, random / heavy-duplicate /
+     sentinel / all-equal inputs; the full sort and merge_sorted_runs
+     (run 2^24, and 3 x 2^26 rows at run 2^25, partition and tile merge
+     held there too) against the plain sort; merge_tiles' 4-byte path
+     (planes off 16-byte alignment, 2 and 4 rows); the launch counters of
+     one merge level (two launches whatever the run) and of a sort of
+     2^25 rows (1 + 2 * 11); bitonic_u64 against its plain version for N
+     from 2^8 to 2^22 on the same four kinds of input; then each
      kernel's time at the shapes the stress count gives it (bitonic_u64:
      N = 2^14 and 2^22; CUDA events, median after warm-up) beside its
      plain version's and, where one PyTorch call computes the same
@@ -52,7 +56,8 @@ numpy ground truth computed here:
 Phases 2-4 and 6-8 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels in the counts,
-bitonic_u64 in phase 8).
+bitonic_u64 in phase 8). The stress counts also log the peak of device
+memory allocated during the count.
 Exits non-zero on any failure (and at once without a CUDA device). The
 line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is the JSON result.
@@ -73,11 +78,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "gatb_core_tpu_torch/ops/csrc/limb_sort.cu"
 REPLACES = {
     "tile_sort": "gatb_core_tpu/ops/pallas_sort.py:150",
-    "tile_merge": "gatb_core_tpu/ops/pallas_sort.py:181",
-    "merge_stage": "gatb_core_tpu/ops/pallas_sort.py:204",
+    "merge_partition": "gatb_core_tpu/ops/pallas_sort.py:204",
+    "merge_tiles": "gatb_core_tpu/ops/pallas_sort.py:181",
     "bitonic_u64": "gatb_core_tpu/ops/pallas_sort.py:45",
 }
-SORT_KERNELS = ("tile_sort", "tile_merge", "merge_stage")
+SORT_KERNELS = ("tile_sort", "merge_partition", "merge_tiles")
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
 # the float32 rate outside the tensor cores as the nearest published rate
 # for 32-bit compare work
@@ -256,8 +261,21 @@ def kernel_inputs(P: int, n: int, kind: str, gen, torch):
 
 
 def max_abs_err(a, b) -> int:
-    """Largest |a - b| over the int32 words of two plane tensors."""
+    """Largest |a - b| over the words of two integer tensors."""
     return int((a.long() - b.long()).abs().max())
+
+
+def check_merge_level(S, runs, run: int, tile: int, err: dict) -> None:
+    """merge_partition and merge_tiles against their plain versions on
+    ``runs`` (ascending runs of length ``run``), output tiles of ``tile``
+    rows; the worst differences go into ``err``."""
+    split = S.merge_partition(runs, run, tile)
+    ref = S.merge_partition_plain(runs, run, tile)
+    err["merge_partition"] = max(err["merge_partition"],
+                                 max_abs_err(split, ref))
+    err["merge_tiles"] = max(err["merge_tiles"], max_abs_err(
+        S.merge_tiles(runs, run, ref, tile),
+        S.merge_tiles_plain(runs, run, ref, tile)))
 
 
 def phase_kernels(torch, S):
@@ -279,19 +297,14 @@ def phase_kernels(torch, S):
                 a = S.tile_sort(x.clone(), tile)
                 err["tile_sort"] = max(err["tile_sort"], max_abs_err(
                     a, S.tile_sort_plain(x, tile)))
-                # a merge level over the sorted tiles: flip stage, one
-                # cross-tile stage when there is one, then the tile sweep
-                if n >= 2 * tile:
-                    run = tile
-                    b = S.merge_stage(a.clone(), run, run)
-                    err["merge_stage"] = max(err["merge_stage"], max_abs_err(
-                        b, S.merge_stage_plain(a, run, run)))
-                    c = S.merge_stage(b.clone(), run, run // 2)
-                    err["merge_stage"] = max(err["merge_stage"], max_abs_err(
-                        c, S.merge_stage_plain(b, run, run // 2)))
-                    d = S.tile_merge(b.clone(), tile)
-                    err["tile_merge"] = max(err["tile_merge"], max_abs_err(
-                        d, S.tile_merge_plain(b, tile)))
+                # a merge level over sorted runs (the sorted tiles, or
+                # the halves of one tile), at the default output tile and
+                # at a small one
+                run = tile if n >= 2 * tile else n // 2
+                if run < tile:
+                    a = S.tile_sort(x.clone(), run)
+                for mt in sorted({min(S.merge_tile_rows(P), 2 * run), 256}):
+                    check_merge_level(S, a, run, mt, err)
                 s = S.sort_u32_limbs(x.clone())
                 err_sort = max(err_sort, max_abs_err(
                     s, S.sort_u32_limbs_plain(x)))
@@ -304,10 +317,41 @@ def phase_kernels(torch, S):
         halves = torch.cat([S.sort_u32_limbs_plain(x[:, :run].contiguous()),
                             S.sort_u32_limbs_plain(x[:, run:].contiguous())],
                            dim=1).contiguous()
-        m = S.merge_sorted_runs(halves.clone(), run)
+        m = S.merge_sorted_runs(halves, run)
         err_sort = max(err_sort, max_abs_err(m, S.sort_u32_limbs_plain(x)))
+        check_merge_level(S, halves, run, S.merge_tile_rows(P), err)
         n_checks += 1
         del x, halves, m
+    # merge_tiles' 4-byte path: too few rows for 16-byte words, and planes
+    # whose storage is not 16-byte aligned
+    for P, n, run in ((2, 2, 1), (3, 4, 1), (3, 1 << 16, 1 << 12)):
+        runs = S.tile_sort_plain(kernel_inputs(P, n, "duplicates", gen,
+                                               torch), run)
+        shifted = torch.empty(P * n + 1, dtype=torch.int32,
+                              device="cuda")[1:].view(P, n)
+        shifted.copy_(runs)
+        check_merge_level(S, shifted, run,
+                          min(S.merge_tile_rows(P), 2 * run), err)
+        n_checks += 1
+    # launches: two per merge level whatever the run, 1 + 2 * 11 for a sort
+    # of 2^25 rows
+    x = S.sort_u32_limbs(kernel_inputs(2, 1 << 25, "random", gen, torch))
+    for run in (1, 1 << 7, 1 << 14, 1 << 20, 1 << 24):
+        S.reset_launches()
+        S.merge_sorted_runs(x, run)
+        check(S.launches == {"tile_sort": 0, "merge_partition": 1,
+                             "merge_tiles": 1, "bitonic_u64": 0},
+              f"a merge level of run {run} is not two launches")
+    x = kernel_inputs(2, 1 << 25, "random", gen, torch)
+    S.reset_launches()
+    S.sort_u32_limbs(x)
+    log(f"launches of one merge level: 2 at every run; of sort_u32_limbs "
+        f"on 2 x 2^25 rows: {dict(S.launches)}")
+    check(S.launches == {"tile_sort": 1, "merge_partition": 11,
+                         "merge_tiles": 11, "bitonic_u64": 0},
+          "sort_u32_limbs of 2^25 rows is not 1 + 2 * 11 launches")
+    S.reset_launches()
+    del x
     # bitonic_u64: one block below 2^14 pairs, the cooperative grid above
     for lg in (8, 10, 13, 14, 15, 16, 18, 20, 22):
         for kind in ("random", "duplicates", "sentinels", "equal"):
@@ -329,8 +373,7 @@ def phase_kernels(torch, S):
 def time_ms(torch, fn, src, warm=2, reps=7, fresh=True):
     """Median CUDA-event time of fn on a fresh copy of src (on src itself
     with fresh=False, for a fn that leaves its argument alone), and what
-    the last call returned (a kernel wrapper returns its sorted-in-place
-    argument, a plain version a new tensor)."""
+    the last call returned."""
     y = torch.empty_like(src) if fresh else src
     times = []
     for r in range(warm + reps):
@@ -366,16 +409,24 @@ def network_ops(n: int, first_level: int, last_level: int,
     return n // 2 * stages
 
 
+def partition_work(P: int, n: int, run: int, tile: int):
+    """(bytes, comparisons) merge_partition needs: per boundary one probe
+    per halving of the diagonal (two rows read each), and the split array
+    written once."""
+    probes = n // tile * run.bit_length()
+    return probes * 2 * P * 4 + 8 * (n // tile + 1), probes
+
+
 def phase_timing(torch, S, card: str):
     """Each kernel and its plain version at the stress count's shapes:
     the raw sort (2 planes x 2^25 rows) and the fold merge (3 planes x
     2^26 rows, runs of 2^25); bitonic_u64 at 2^14 and 2^22 pairs. The
     outputs of each pair are held against each other. Each bound is
     computed from the timed input: every byte read once and written once,
-    one comparison per compare-exchange. The library call is one
-    torch.sort of the same rows joined into int64 keys (the join is made
-    before the clock starts); no PyTorch call computes one merge stage or
-    one merge level.
+    one comparison per compare-exchange of a network and per output row of
+    a merge. The library call is one torch.sort of the same rows joined
+    into int64 keys (the join is made before the clock starts); no PyTorch
+    call merges sorted runs of multi-word rows or finds their merge path.
     Returns {name: {ms, plain_ms, library_ms, bound_ms, bound_by}} and
     max |kernel - plain| per name."""
     gen = torch.Generator(device="cuda")
@@ -389,7 +440,9 @@ def phase_timing(torch, S, card: str):
     fold = torch.cat([S.sort_u32_limbs_plain(fold[:, :run].contiguous()),
                       S.sort_u32_limbs_plain(fold[:, run:].contiguous())],
                      dim=1).contiguous()
-    t_fold = 1 << S.tile_log2_for(3, 2 * run)
+    t_fold = S.merge_tile_rows(3)
+    split = S.merge_partition_plain(fold, run, t_fold)
+    part_bytes, part_ops = partition_work(3, 2 * run, run, t_fold)
     top = torch.iinfo(torch.int64).min
 
     def keys_of(x):
@@ -397,45 +450,49 @@ def phase_timing(torch, S, card: str):
         return (((x[0].long() & 0xFFFFFFFF) << 32)
                 | (x[1].long() & 0xFFFFFFFF)) ^ top
 
-    lt, lf = t_sort.bit_length() - 1, t_fold.bit_length() - 1
+    lt = t_sort.bit_length() - 1
     raw_keys = keys_of(raw)
-    # name: (kernel, plain, input, shape, library call, its input,
-    #        bytes moved, comparisons)
+    # name: (kernel, plain, input, whether the call gives up its input,
+    #        shape, library call, its input, bytes moved, comparisons)
     pairs = {
         "tile_sort": (lambda y: S.tile_sort(y, t_sort),
-                      lambda y: S.tile_sort_plain(y, t_sort), raw,
+                      lambda y: S.tile_sort_plain(y, t_sort), raw, True,
                       f"2 x 2^25 rows, tile {t_sort}; library: torch.sort "
                       "of the int64 keys along each tile",
                       lambda q: torch.sort(q.view(-1, t_sort), dim=1).values,
                       raw_keys, 2 * raw.numel() * 4,
                       network_ops(1 << 25, 1, lt)),
-        "merge_stage": (lambda y: S.merge_stage(y, run, run),
-                        lambda y: S.merge_stage_plain(y, run, run), fold,
-                        "3 x 2^26 rows, run 2^25, flip stage; no library "
-                        "call", None, None, 2 * fold.numel() * 4,
-                        network_ops(2 * run, 1, 1)),
-        "tile_merge": (lambda y: S.tile_merge(y, t_fold),
-                       lambda y: S.tile_merge_plain(y, t_fold), fold,
-                       f"3 x 2^26 rows, tile {t_fold}; no library call",
-                       None, None, 2 * fold.numel() * 4,
-                       network_ops(2 * run, lf, lf)),
+        "merge_partition": (lambda y: S.merge_partition(y, run, t_fold),
+                            lambda y: S.merge_partition_plain(y, run, t_fold),
+                            fold, False,
+                            f"3 x 2^26 rows, run 2^25, tile {t_fold}; no "
+                            "library call", None, None, part_bytes, part_ops),
+        "merge_tiles": (lambda y: S.merge_tiles(y, run, split, t_fold),
+                        lambda y: S.merge_tiles_plain(y, run, split, t_fold),
+                        fold, False,
+                        f"3 x 2^26 rows, run 2^25, tile {t_fold}; no "
+                        "library call", None, None,
+                        2 * fold.numel() * 4 + split.numel() * 8, 2 * run),
         "sort_u32_limbs": (S.sort_u32_limbs, S.sort_u32_limbs_plain, raw,
+                           True,
                            "2 x 2^25 rows; plain: stable torch.sort per "
                            "plane; library: one torch.sort of int64 keys",
                            lambda q: torch.sort(q).values, raw_keys,
-                           2 * raw.numel() * 4, network_ops(1 << 25, 1, 25)),
+                           2 * raw.numel() * 4,
+                           network_ops(1 << 25, 1, lt)
+                           + (25 - lt) * (1 << 25)),
         "merge_sorted_runs": (lambda y: S.merge_sorted_runs(y, run),
-                              S.sort_u32_limbs_plain, fold,
-                              "3 x 2^26 rows, run 2^25; plain: full sort; "
-                              "no library call", None, None,
-                              2 * fold.numel() * 4,
-                              network_ops(2 * run, 26, 26)),
+                              lambda y: S.merge_sorted_runs_plain(y, run),
+                              fold, False,
+                              "3 x 2^26 rows, run 2^25; plain: sort of the "
+                              "pair of runs; no library call", None, None,
+                              2 * fold.numel() * 4, 2 * run),
     }
     times, errs = {}, {}
-    for name, (fn, plain, src, shape, lib, lib_src, n_bytes,
+    for name, (fn, plain, src, fresh, shape, lib, lib_src, n_bytes,
                n_ops) in pairs.items():
-        ms, out = time_ms(torch, fn, src)
-        plain_ms, ref = time_ms(torch, plain, src)
+        ms, out = time_ms(torch, fn, src, fresh=fresh)
+        plain_ms, ref = time_ms(torch, plain, src, fresh=False)
         errs[name] = max_abs_err(out, ref)
         lib_ms = None
         if lib is not None:
@@ -448,7 +505,7 @@ def phase_timing(torch, S, card: str):
             f"{b_ms:.4f} ms by {b_by} ({shape}; {card}); "
             f"max |kernel - plain| {errs[name]}")
         del out, ref
-    del raw, fold, raw_keys
+    del raw, fold, raw_keys, split
     # bitonic_u64: the wrapper sorts copies of its arguments (the two
     # device copies are inside its time)
     for lg in (14, 22):
@@ -535,24 +592,26 @@ def phase_shapes(torch, S, shapes: dict) -> dict:
     inputs. Returns max |kernel - plain| per kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(31)
-    calls = {
-        "tile_sort": (lambda x, a: S.tile_sort(x, a[0]),
-                      lambda x, a: S.tile_sort_plain(x, a[0])),
-        "tile_merge": (lambda x, a: S.tile_merge(x, a[0]),
-                       lambda x, a: S.tile_merge_plain(x, a[0])),
-        "merge_stage": (lambda x, a: S.merge_stage(x, *a),
-                        lambda x, a: S.merge_stage_plain(x, *a)),
-    }
     err = {name: 0 for name in REPLACES}
     n_checks = 0
-    for name, (kern, plain) in calls.items():
-        for P, n, *args in sorted(shapes[name]):
-            for kind in ("random", "duplicates"):
-                x = kernel_inputs(P, n, kind, gen, torch)
-                ref = plain(x, args)
-                err[name] = max(err[name], max_abs_err(kern(x, args), ref))
-                n_checks += 1
-                del x, ref
+    for P, n, tile in sorted(shapes["tile_sort"]):
+        for kind in ("random", "duplicates"):
+            x = kernel_inputs(P, n, kind, gen, torch)
+            ref = S.tile_sort_plain(x, tile)
+            err["tile_sort"] = max(err["tile_sort"],
+                                   max_abs_err(S.tile_sort(x, tile), ref))
+            n_checks += 1
+            del x, ref
+    # the two merge kernels launch with the same shapes, on sorted runs
+    check(shapes["merge_partition"] == shapes["merge_tiles"],
+          "main-path shapes: the merge kernels' launch shapes differ")
+    for P, n, run, tile in sorted(shapes["merge_tiles"]):
+        for kind in ("random", "duplicates"):
+            runs = S.tile_sort_plain(kernel_inputs(P, n, kind, gen, torch),
+                                     run)
+            check_merge_level(S, runs, run, tile, err)
+            n_checks += 2
+            del runs
     for (n,) in sorted(shapes["bitonic_u64"]):
         for kind in ("random", "duplicates"):
             x = kernel_inputs(2, n, kind, gen, torch)
@@ -656,11 +715,16 @@ def stress_count(tally, S, count_kmers, path: str, name: str, card: str,
                  **kw):
     """One count of the stress bank: the known exact result, a sorted
     table, and the run's stopwatches in the log."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     res, got = tally.counted(S, name, lambda: count_kmers(
         path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 25,
         nb_passes=1, **kw))
     wall = time.time() - t0
+    log(f"{name}: peak device memory allocated during the count "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; {card}")
     info = res.info
     sweep = info.get("fillsolid_time.4.process", 0.0)
     stages = {key.split(".", 1)[1]: info[key] for key in sorted(info)
@@ -867,13 +931,16 @@ def profile_main(torch, count_kmers, n_reads: int, out_dir: str) -> int:
         write_stress_bank(bank, n_reads=n_reads)
         solid = set()
         for name, kw in paths.items():
+            torch.cuda.reset_peak_memory_stats()
             res, wall = count(bank, **kw)
+            peak = torch.cuda.max_memory_allocated() / 2**20
             info = res.info
             stages = {k.split(".", 1)[1]: info[k] for k in sorted(info)
                       if k.startswith("fillsolid_time.")}
             log(f"{name}: count {wall:.3f} s wall, fill "
                 f"{info['time_fill']:.3f} s, stopwatches {stages}, solid "
-                f"{info['kmers_nb_solid']}; {card}")
+                f"{info['kmers_nb_solid']}, peak device memory allocated "
+                f"{peak:.1f} MiB; {card}")
             solid.add(info["kmers_nb_solid"])
         check(len(solid) == 1, "profile: the two paths disagree")
         check(n_reads != 6_000_000 or solid == {29_999_950},

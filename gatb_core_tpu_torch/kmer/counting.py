@@ -14,7 +14,7 @@ partition is radix-binned, sorted and 453-way-merged
                         batcher, or the Python builder)
   device, per superbatch (_superbatch_count_fold): canonical multi-limb
                         k-mer extraction (ops/kmer_ops.py), one sort of the
-                        raw rows and one bitonic merge level against the
+                        raw rows and one merge level against the
                         device-resident accumulator (the CUDA kernels of
                         ops/limb_sort.py), then the distinct reduce
                         (ops/sortops.py)
@@ -31,7 +31,7 @@ device runs the kernels' plain PyTorch twins; that is for tests, and
 nothing moves to the CPU when a CUDA device is missing.
 
 Every sort pads its rows to a power of two with all-ones sentinels (the
-bitonic kernels need one), where the JAX package's default path sorts the
+sort kernels need one), where the JAX package's default path sorts the
 exact row count: table capacities and the ``ub`` bounds of the LSM chain
 can differ from the JAX package's along the way; live rows, counts, ``n``,
 the final tables and ``info`` are equal.
@@ -103,7 +103,7 @@ class CountConfig:
     packed_transfer: bool = True
     # fused count+fold accumulator (DEFAULT): every superbatch extracts
     # and sorts its raw rows and folds them into the device-resident
-    # accumulated table with ONE bitonic merge level
+    # accumulated table with ONE merge level
     # (_superbatch_count_fold). False selects the LSM chain: one distinct
     # table per superbatch, merged by size class (kept for A/B and for
     # shapes the fold cannot take)
@@ -365,7 +365,7 @@ def _superbatch_count(codes, valid, lengths, pass_i, *, k: int, m: int,
                       packed: bool = False, L: int | None = None):
     """One whole superbatch (G stacked read batches) of the LSM chain:
     extraction + pass filter + ONE plane sort (rows padded to a power of
-    two with sentinels, which the bitonic kernels need) + the distinct
+    two with sentinels, which the sort kernels need) + the distinct
     reduce into a table of its own.
 
     This mirrors the reference's per-partition sort granularity
@@ -394,8 +394,8 @@ def _superbatch_count_fold(codes, valid, lengths, pass_i, acc_planes,
                            L: int | None, cap_acc: int,
                            cap_out: int | None = None):
     """Fused count+fold superbatch step: extraction + raw sort + ONE
-    bitonic merge level against the device-resident accumulated table +
-    a single distinct reduce.
+    merge level against the device-resident accumulated table + a single
+    distinct reduce.
 
     codes/valid: (G, B, L) bytes/bools, or with packed=True the packed
     words / validity bitmasks ((G, B, ceil(L/16)) / (G, B, ceil(L/32))
@@ -410,8 +410,9 @@ def _superbatch_count_fold(codes, valid, lengths, pass_i, acc_planes,
     sorted by the limb-sort kernels, and either merged directly (raw mode,
     ``cap_out=None``: they must fit cap_acc) or first reduced to their own
     distinct table at capacity ``cap_out`` (compact mode). The two sorted
-    runs, accumulator and new rows, merge in one level with the counts
-    riding as the least significant key plane (summed per run
+    runs, accumulator and new rows, merge in one out-of-place level (a new
+    tensor beside the two runs) with the counts riding as the least
+    significant key plane (summed per run
     downstream, so their order inside an equal-k-mer run is irrelevant).
 
     Transactional: if either capacity overflows, the accumulator is left
@@ -431,7 +432,7 @@ def _superbatch_count_fold(codes, valid, lengths, pass_i, acc_planes,
     sraw, _, nv, n_valid, n_inside, _ = _extract_superbatch(
         codes, valid, lengths, pass_i, k=k, m=m, nb_passes=nb_passes,
         packed=packed, L=L)
-    sort_u32_limbs(sraw)
+    sraw = sort_u32_limbs(sraw)
     if cap_out is not None:
         # compact-first: reduce the raw rows to their distinct table
         sidx = torch.arange(sraw.shape[1], device=dev)
@@ -460,7 +461,7 @@ def _superbatch_count_fold(codes, valid, lengths, pass_i, acc_planes,
         cat[w, run:run + nr] = (torch.arange(nr, device=dev) < nv).to(I32)
     else:
         cat[w, run:run + nr] = raw_c
-    merge_sorted_runs(cat, run)
+    cat = merge_sorted_runs(cat, run)
     inv = torch.arange(2 * run, device=dev) >= (acc_n_eff + n_new)
     out_p, out_c, n2, ovf_acc = count_sorted_planes(
         cat[:w], inv, weights=cat[w], cap_out=cap_acc)
@@ -484,7 +485,7 @@ _SYNC_UB_ROWS = 1 << 24
 
 def _merge_smallest_pair(lst) -> None:
     """Merge the two smallest device tables of `lst` in place (one
-    bitonic merge level + reduce, ops/sortops.merge_tables_planes): the
+    merge level + reduce, ops/sortops.merge_tables_planes): the
     rolling-merge step that bounds device memory during a pass.
 
     Entries are (planes, counts, n, ub): n may be a DEVICE scalar (no host

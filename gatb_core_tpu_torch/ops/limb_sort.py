@@ -1,17 +1,21 @@
-"""Lexicographic sort and merge of uint32 limb planes (bitonic network).
+"""Lexicographic sort and merge of uint32 limb planes.
 
 Port of gatb_core_tpu/ops/pallas_sort.py. torch has no counterpart of
 ``jax.lax.sort(planes, num_keys=w)`` (``torch.sort`` takes one key), so on
-this package's counting path the multi-plane sort and the fold's merge
-level are the hand-written CUDA kernels of ``csrc/limb_sort.cu``:
+this package's counting path the multi-plane sort and every merge of two
+sorted tables are the hand-written CUDA kernels of ``csrc/limb_sort.cu``:
 
-- ``tile_sort`` (plain twin ``tile_sort_plain``) replaces
-  ``_tile_sort_kernel`` (pallas_sort.py:150, via ``_pallas_tile_sweep``);
-- ``tile_merge`` (``tile_merge_plain``) replaces ``_tile_merge_kernel``
-  (pallas_sort.py:181);
-- ``merge_stage`` (``merge_stage_plain``) replaces the cross-tile stages of
-  ``_merge_sorted_runs`` (pallas_sort.py:204, jnp there);
-- ``bitonic_u64`` (wrapper ``bitonic_sort_u64``, plain twin
+- ``tile_sort`` (plain version ``tile_sort_plain``) replaces
+  ``_tile_sort_kernel`` (pallas_sort.py:150, via ``_pallas_tile_sweep``):
+  the bitonic network of one tile, in shared memory;
+- ``merge_partition`` (``merge_partition_plain``) replaces the cross-tile
+  stages of ``_merge_sorted_runs`` (pallas_sort.py:204, jnp there): it cuts
+  the merged output of every pair of runs into tiles by a binary search
+  along the merge path;
+- ``merge_tiles`` (``merge_tiles_plain``) replaces ``_tile_merge_kernel``
+  (pallas_sort.py:181): one block merges the two input segments of one
+  output tile in shared memory;
+- ``bitonic_u64`` (wrapper ``bitonic_sort_u64``, plain version
   ``bitonic_sort_u64_plain``) replaces ``_bitonic_kernel``
   (pallas_sort.py:45, via ``bitonic_sort_u64`` :343): the whole network
   over (hi, lo) pairs in one launch. Nothing on the counting path calls it,
@@ -22,16 +26,22 @@ most significant; rows order as big-endian unsigned integers. N is a power
 of two. Invalid rows and padding must be all-ones in every plane (the
 sentinel), so they sort to the tail.
 
-Each wrapper works IN PLACE on its (P, N) argument (the JAX functions are
-pure; the port reuses the buffer instead of allocating a copy per stage).
-For a CUDA tensor it launches its kernel and counts the launch in
-``launches``; for a CPU tensor it runs its plain PyTorch twin, and for any
-other device it raises. There is no fallback from the kernel to the twin.
+The merge level is a merge-path merge, not the bitonic merge network of
+the JAX package (a network stage that crosses tiles is a trip of the whole
+array through device memory, and a level has log2(2 * run) stages; the TPU
+takes them because it has no cheap data-dependent addressing). A level is
+two launches whatever the run length and moves 2 * 4 * P * N bytes, its
+bound on an H100: each row is read once and written once. The result is
+the same as the network's wherever rows equal in every plane are
+identical, which holds for every caller (payload planes are keys).
 
-Bounds on an H100 (see the note at the top of limb_sort.cu): a stage in
-device memory moves 2 * 4 * P * N bytes; tile_sort/tile_merge keep every
-stage below the tile in shared memory, so a merge level costs one
-merge_stage launch per cross-tile stage plus one tile_merge sweep.
+``tile_sort`` works in place. A merge level is out of place: it reads its
+argument and returns a new tensor. ``sort_u32_limbs`` uses its argument as
+one of two ping-pong buffers and returns the one that holds the result, so
+callers take the return value and give up the argument. For a CUDA tensor a
+wrapper launches its kernel and counts the launch in ``launches``; for a
+CPU tensor it runs its plain PyTorch version, and for any other device it
+raises. There is no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -42,12 +52,16 @@ import functools
 import torch
 
 SMEM_BYTES = 232448           # shared memory one block may use on sm_90
+# merge_tiles: shared memory wanted per block, so that several blocks share
+# one SM, and output rows each thread merges serially
+MERGE_SMEM_BYTES = 32768
+MERGE_ITEMS = 8
 _BIAS = -(1 << 31)            # x ^ _BIAS orders int32 storage as uint32
 
 # kernel launches made through the wrappers (CUDA tensors only), and the
-# distinct argument shapes they launched with: (P, N, tile) for the tile
-# kernels, (P, N, run, j) for merge_stage, (N,) for bitonic_u64
-launches = {"tile_sort": 0, "tile_merge": 0, "merge_stage": 0,
+# distinct argument shapes they launched with: (P, N, tile) for tile_sort,
+# (P, N, run, tile) for the two merge kernels, (N,) for bitonic_u64
+launches = {"tile_sort": 0, "merge_partition": 0, "merge_tiles": 0,
             "bitonic_u64": 0}
 launch_shapes: dict[str, set] = {name: set() for name in launches}
 
@@ -87,6 +101,26 @@ def tile_log2_for(n_planes: int, n: int) -> int:
     return min(t, n.bit_length() - 1)
 
 
+def merge_smem_bytes(n_planes: int, tile: int) -> int:
+    """Shared memory of one ``merge_tiles`` block: P planes of tile + 16
+    words (the padding lets 16-byte loads keep their alignment) and a
+    16-bit source slot per output row."""
+    return (tile + 16) * 4 * n_planes + 2 * tile
+
+
+def merge_tile_rows(n_planes: int) -> int:
+    """Output rows of one ``merge_tiles`` block: the largest power of two
+    whose shared memory fits MERGE_SMEM_BYTES, at least 256 rows where
+    those still fit one block's shared memory."""
+    t = 1 << 15
+    while t > 256 and merge_smem_bytes(n_planes, t) > MERGE_SMEM_BYTES:
+        t >>= 1
+    if merge_smem_bytes(n_planes, t) > SMEM_BYTES:
+        raise ValueError(f"merge_tiles: no tile of {n_planes} planes fits "
+                         "shared memory")
+    return t
+
+
 # ---------------------------------------------------------------------------
 # kernel launchers
 # ---------------------------------------------------------------------------
@@ -101,11 +135,11 @@ def _lib() -> ctypes.CDLL:
     lib = load_cuda("limb_sort")
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.limb_tile_sort.argtypes = [vp, ll, i, i, vp]
-    lib.limb_tile_merge.argtypes = [vp, ll, i, i, vp]
-    lib.limb_merge_stage.argtypes = [vp, ll, i, ll, ll, vp]
+    lib.limb_merge_partition.argtypes = [vp, vp, ll, i, ll, ll, vp]
+    lib.limb_merge_tiles.argtypes = [vp, vp, vp, ll, i, ll, i, i, vp]
     lib.limb_bitonic_u64.argtypes = [vp, vp, ll, vp]
-    for fn in (lib.limb_tile_sort, lib.limb_tile_merge, lib.limb_merge_stage,
-               lib.limb_bitonic_u64):
+    for fn in (lib.limb_tile_sort, lib.limb_merge_partition,
+               lib.limb_merge_tiles, lib.limb_bitonic_u64):
         fn.restype = ctypes.c_int
     return lib
 
@@ -120,7 +154,7 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _route(x: torch.Tensor) -> bool:
-    """True for the kernel (CUDA tensor), False for the plain twin (CPU
+    """True for the kernel (CUDA tensor), False for the plain version (CPU
     tensor); any other device raises."""
     if x.is_cuda:
         return True
@@ -153,43 +187,76 @@ def tile_sort(planes: torch.Tensor, tile: int) -> torch.Tensor:
     return x
 
 
-def tile_merge(planes: torch.Tensor, tile: int) -> torch.Tensor:
-    """Stages j = tile/2 .. 1 (ascending) of a merge level inside every
-    tile, in place."""
-    x = as_planes(planes)
-    P, n = x.shape
-    _check_tile(n, tile, "tile_merge")
-    if tile < 2:
-        return x
-    if not _route(x):
-        x.copy_(tile_merge_plain(x, tile))
-        return x
-    with torch.cuda.device(x.device):
-        rc = _lib().limb_tile_merge(x.data_ptr(), n, P, tile, _stream(x))
-    _check(rc, "tile_merge")
-    launches["tile_merge"] += 1
-    launch_shapes["tile_merge"].add((P, n, tile))
-    return x
+def _check_merge(x: torch.Tensor, run: int, tile: int, what: str) -> None:
+    n = x.shape[1]
+    _log2_exact(n, what)
+    _log2_exact(run, f"{what}(run)")
+    _log2_exact(tile, f"{what}(tile)")
+    if 2 * run > n:
+        raise ValueError(f"{what}: 2 * run exceeds the size")
+    if tile > 2 * run or tile > 1 << 15:
+        raise ValueError(f"{what}: the tile exceeds a pair of runs or 2^15")
+    if merge_smem_bytes(x.shape[0], tile) > SMEM_BYTES:
+        raise ValueError(f"{what}: the tile does not fit shared memory")
 
 
-def merge_stage(planes: torch.Tensor, run: int, j: int) -> torch.Tensor:
-    """Stage ``j`` of the merge level of ascending runs of length ``run``,
-    in place (j == run: the flip stage)."""
+def merge_partition(planes: torch.Tensor, run: int,
+                    tile: int) -> torch.Tensor:
+    """Where the tiles of a merge level begin in their inputs.
+
+    planes holds N / (2 * run) pairs of adjacent ascending runs of length
+    ``run``; each pair merges into 2 * run rows, cut into output tiles of
+    ``tile`` rows. Returns the (N / tile + 1,) int64 split array:
+    ``split[t]`` is the number of first-run rows among the first
+    ``t * tile`` rows of the merged array (pair * run of the earlier pairs
+    plus those of the boundary's own pair), ties taking the first run
+    first; the second-run rows before the boundary are the rest."""
     x = as_planes(planes)
     P, n = x.shape
-    _log2_exact(run, "merge_stage(run)")
-    _log2_exact(j, "merge_stage(j)")
-    if j > run or n % (2 * run):
-        raise ValueError("merge_stage: needs j <= run and runs pairing up")
+    _check_merge(x, run, tile, "merge_partition")
     if not _route(x):
-        x.copy_(merge_stage_plain(x, run, j))
-        return x
+        return merge_partition_plain(x, run, tile)
+    split = torch.empty((n // tile + 1,), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().limb_merge_stage(x.data_ptr(), n, P, run, j, _stream(x))
-    _check(rc, "merge_stage")
-    launches["merge_stage"] += 1
-    launch_shapes["merge_stage"].add((P, n, run, j))
-    return x
+        rc = _lib().limb_merge_partition(x.data_ptr(), split.data_ptr(), n, P,
+                                         run, tile, _stream(x))
+    _check(rc, "merge_partition")
+    launches["merge_partition"] += 1
+    launch_shapes["merge_partition"].add((P, n, run, tile))
+    return split
+
+
+def merge_tiles(planes: torch.Tensor, run: int, split: torch.Tensor,
+                tile: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Merge every pair of adjacent ascending runs of length ``run`` tile
+    by tile along ``split`` (see ``merge_partition``). Out of place: the
+    merged rows go to ``out`` (a new tensor by default), which is returned;
+    ``planes`` is left as it is."""
+    x = as_planes(planes)
+    P, n = x.shape
+    _check_merge(x, run, tile, "merge_tiles")
+    if (split.dtype != torch.int64 or split.device != x.device
+            or split.shape != (n // tile + 1,) or not split.is_contiguous()):
+        raise ValueError("merge_tiles: split must be the contiguous int64 "
+                         "array of merge_partition on the planes' device")
+    if out is None:
+        out = torch.empty_like(x)
+    elif (out.shape != x.shape or out.dtype != x.dtype
+          or out.device != x.device or not out.is_contiguous()
+          or out.data_ptr() == x.data_ptr()):
+        raise ValueError("merge_tiles: out must be another contiguous "
+                         "tensor like the planes")
+    if not _route(x):
+        out.copy_(merge_tiles_plain(x, run, split, tile))
+        return out
+    with torch.cuda.device(x.device):
+        rc = _lib().limb_merge_tiles(x.data_ptr(), out.data_ptr(),
+                                     split.data_ptr(), n, P, run, tile,
+                                     MERGE_ITEMS, _stream(x))
+    _check(rc, "merge_tiles")
+    launches["merge_tiles"] += 1
+    launch_shapes["merge_tiles"].add((P, n, run, tile))
+    return out
 
 
 def bitonic_sort_u64(hi: torch.Tensor, lo: torch.Tensor):
@@ -199,7 +266,7 @@ def bitonic_sort_u64(hi: torch.Tensor, lo: torch.Tensor):
 
     On a CUDA tensor this is one launch of the ``bitonic_u64`` kernel (it
     raises if the kernel cannot be built or launched); on a CPU tensor the
-    plain twin."""
+    plain version."""
     if hi.shape != lo.shape or hi.dim() != 1:
         raise ValueError("bitonic_sort_u64: hi and lo must be flat and of "
                          "one size")
@@ -229,67 +296,57 @@ def bitonic_sort_u64(hi: torch.Tensor, lo: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+def _merge_tile(n_planes: int, run: int, tile_log2: int | None) -> int:
+    """Rows of a merge level's output tile: ``merge_tile_rows``, capped at
+    the caller's 2^tile_log2 and at one pair of runs."""
+    tile = min(merge_tile_rows(n_planes), 2 * run)
+    return tile if tile_log2 is None else min(tile, 1 << tile_log2)
+
+
 def sort_u32_limbs(planes, tile_log2: int | None = None) -> torch.Tensor:
     """Sort rows ascending by their big-endian lexicographic order
     (== integer order of the concatenated value).
 
     N must be a power of two. Tiles of 2^tile_log2 rows (default: the
-    largest that fits shared memory) are sorted by ``tile_sort``; each
-    further merge level runs its cross-tile stages j = run .. tile with
-    ``merge_stage`` and its intra-tile stages with one ``tile_merge``.
-    A (P, N) tensor is sorted in place and returned.
+    largest that fits shared memory) are sorted by ``tile_sort``; the run
+    then doubles with one merge level (``merge_partition`` +
+    ``merge_tiles``) at a time, between the argument and one scratch tensor
+    of its size. Returns whichever of the two holds the sorted rows: take
+    the return value, the argument's contents are given up. A given
+    ``tile_log2`` also caps the merge levels' output tile.
     """
     x = as_planes(planes)
     P, n = x.shape
     _log2_exact(n, "sort_u32_limbs")
     t = tile_log2_for(P, n) if tile_log2 is None else tile_log2
-    tile = min(1 << t, n)
-    tile_sort(x, tile)
-    run = tile
+    run = min(1 << t, n)
+    tile_sort(x, run)
+    other = None
     while run < n:
-        _merge_level(x, run, tile, stop_j=1)
+        tile = _merge_tile(P, run, tile_log2)
+        if other is None:
+            other = torch.empty_like(x)
+        merge_tiles(x, run, merge_partition(x, run, tile), tile, out=other)
+        x, other = other, x
         run *= 2
     return x
 
 
-def _merge_level(x: torch.Tensor, run: int, tile: int, stop_j: int) -> None:
-    j = run
-    while j >= max(stop_j, tile):
-        merge_stage(x, run, j)
-        j //= 2
-    if stop_j < tile:
-        tile_merge(x, tile)
-
-
-def merge_sorted_runs(planes, run: int, stop_j: int = 1,
+def merge_sorted_runs(planes, run: int,
                       tile_log2: int | None = None) -> torch.Tensor:
-    """Bitonic merge level: pairs of adjacent ascending runs of length
-    ``run`` -> ascending runs of 2*run, in place.
-
-    Stages j = run .. stop_j run; stop_j must be 1 (complete merge) or at
-    least the tile, since the stages below the tile run fused in one
-    ``tile_merge``. With stop_j == 1 the result equals the JAX
-    ``_merge_sorted_runs``. A partial merge (stop_j > 1) leaves a different
-    but equally valid intermediate layout: the first stage here is the
-    flip comparator, where the JAX version reverses the second run.
-    """
+    """One merge level: pairs of adjacent ascending runs of length ``run``
+    -> ascending runs of 2 * run, in a new tensor (the argument is left as
+    it is). Two launches, ``merge_partition`` and ``merge_tiles``, whatever
+    ``run`` is. Equals the JAX ``_merge_sorted_runs`` wherever rows equal
+    in every plane are identical."""
     x = as_planes(planes)
-    P, n = x.shape
-    _log2_exact(n, "merge_sorted_runs")
-    _log2_exact(run, "merge_sorted_runs(run)")
-    if 2 * run > n:
-        raise ValueError("merge_sorted_runs: 2 * run exceeds the size")
-    t = tile_log2_for(P, n) if tile_log2 is None else tile_log2
-    tile = min(1 << t, run)
-    if 1 < stop_j < tile:
-        raise ValueError("merge_sorted_runs: stop_j must be 1 or >= tile")
-    _merge_level(x, run, tile, stop_j)
-    return x
+    tile = _merge_tile(x.shape[0], run, tile_log2)
+    return merge_tiles(x, run, merge_partition(x, run, tile), tile)
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch twins (CPU tests, and the reference the kernels are held
-# to on the card); each returns a new tensor
+# plain PyTorch versions (CPU tensors and tests, and the reference the
+# kernels are held to on the card); each returns a new tensor
 # ---------------------------------------------------------------------------
 
 
@@ -336,31 +393,54 @@ def bitonic_sort_u64_plain(hi: torch.Tensor, lo: torch.Tensor):
     return (key >> 32).to(torch.int32), key.to(torch.int32)
 
 
-def _compare_exchange(v: torch.Tensor, flip: bool) -> None:
-    """v: (P, blocks, 2, h) view; min to [:, :, 0], max to [:, :, 1]
-    (the second half mirrored when ``flip``)."""
-    a = v[:, :, 0]
-    b = v[:, :, 1].flip(-1) if flip else v[:, :, 1]
-    sw = _lex_lt(b, a)
-    lo = torch.where(sw, b, a)
-    hi = torch.where(sw, a, b)
-    v[:, :, 0] = lo
-    v[:, :, 1] = hi.flip(-1) if flip else hi
-
-
-def merge_stage_plain(planes: torch.Tensor, run: int, j: int) -> torch.Tensor:
-    x = as_planes(planes).clone()
+def merge_partition_plain(planes: torch.Tensor, run: int,
+                          tile: int) -> torch.Tensor:
+    """Plain version of ``merge_partition``: the same binary search along
+    each boundary's merge-path diagonal, all boundaries at once."""
+    x = as_planes(planes)
     P, n = x.shape
-    h = run if j == run else j
-    _compare_exchange(x.view(P, n // (2 * h), 2, h), flip=j == run)
-    return x
+    dev = x.device
+    g = torch.arange(n // tile, dtype=torch.int64, device=dev) * tile
+    pair = g // (2 * run)
+    first = pair * (2 * run)
+    d = g - first
+    lo = torch.clamp(d - run, min=0)
+    hi = torch.clamp(d, max=run)
+    for _ in range(run.bit_length()):
+        open_ = lo < hi
+        mid = (lo + hi) // 2
+        # first-run row mid lies before the boundary iff second-run row
+        # d - mid - 1 is not smaller (ties take the first run first)
+        a = x[:, torch.where(open_, first + mid, first)]
+        b = x[:, torch.where(open_, first + run + d - mid - 1, first)]
+        take = open_ & ~_lex_lt(b, a)
+        lo = torch.where(take, mid + 1, lo)
+        hi = torch.where(open_ & ~take, mid, hi)
+    end = torch.full((1,), n // 2, dtype=torch.int64, device=dev)
+    return torch.cat([pair * run + lo, end])
 
 
-def tile_merge_plain(planes: torch.Tensor, tile: int) -> torch.Tensor:
-    x = as_planes(planes).clone()
+def merge_tiles_plain(planes: torch.Tensor, run: int, split: torch.Tensor,
+                      tile: int) -> torch.Tensor:
+    """Plain version of ``merge_tiles``: every output tile's two input
+    segments gathered side by side and sorted by the plain lexicographic
+    sort (a merge of sorted runs equals their sort)."""
+    x = as_planes(planes)
     P, n = x.shape
-    j = tile // 2
-    while j >= 1:
-        _compare_exchange(x.view(P, n // (2 * j), 2, j), flip=False)
-        j //= 2
-    return x
+    dev = x.device
+    g = torch.arange(n // tile, dtype=torch.int64, device=dev) * tile
+    pair = g // (2 * run)
+    first = pair * (2 * run)
+    a0 = split[:-1] - pair * run            # first-run rows before the tile
+    na = split[1:] - split[:-1]             # first-run rows inside it
+    b0 = g - first - a0
+    i = torch.arange(tile, dtype=torch.int64, device=dev)[None, :]
+    from_a = (first + a0)[:, None] + i
+    from_b = (first + run + b0 - na)[:, None] + i
+    src = torch.where(i < na[:, None], from_a, from_b).reshape(-1)
+    return tile_sort_plain(x[:, src], tile)
+
+
+def merge_sorted_runs_plain(planes: torch.Tensor, run: int) -> torch.Tensor:
+    """Every pair of adjacent runs sorted by the plain lexicographic sort."""
+    return tile_sort_plain(as_planes(planes), 2 * run)

@@ -3,8 +3,9 @@
 Port of the counting half of gatb_core_tpu/ops/sortops.py (lines 52-224
 and 439-823): k-mers ride as one (P, N) int32 tensor of uint32 limb planes
 (plane 0 most significant, see ops/limb_sort.py), sorted by the
-hand-written bitonic kernels, then reduced to a distinct table by run
-detection and a weight prefix sum. The row-major entry points of the JAX
+hand-written kernels (a bitonic sort of tiles, then merge-path merge
+levels), then reduced to a distinct table by run detection and a weight
+prefix sum. The row-major entry points of the JAX
 module (``sort_by_kmer``, ``count_sorted``, ``count_batch``,
 ``merge_tables``, ``pallas_sort_rows``) take and return (N, W) rows and
 wrap the plane-major ones.
@@ -12,8 +13,10 @@ wrap the plane-major ones.
 There is no ``use_pallas`` argument and no environment switch: every sort
 and merge here goes through ``limb_sort.sort_u32_limbs`` /
 ``merge_sorted_runs``, which launch the CUDA kernels on a CUDA tensor and
-run their plain versions on a CPU tensor. The bitonic network carries no
-payload channel, so payloads (counts, bank ids) ride as least-significant
+run their plain versions on a CPU tensor. Both return the tensor that
+holds the result (a merge is out of place, the sort ping-pongs between its
+argument and a scratch tensor), so every caller here takes the return
+value. The kernels carry no payload channel, so payloads (counts, bank ids) ride as least-significant
 key planes; every caller sums them per equal-k-mer run, so their order
 inside a run does not reach a result. The sorts need a power-of-two row
 count: inputs are padded with all-ones sentinel rows, so capacities along
@@ -107,7 +110,7 @@ def pallas_sort_rows(flat: torch.Tensor, inv: torch.Tensor,
     for i, q in enumerate(payloads):
         planes[n_keys + i, :n] = q.to(I32)
         planes[n_keys + i, n:] = 0
-    sort_u32_limbs(planes)
+    planes = sort_u32_limbs(planes)
     si = None if spare_bits else planes[0] != 0
     sk = planes[k0:n_keys].T.contiguous()
     return (sk, si) + tuple(planes[n_keys + i]
@@ -303,7 +306,7 @@ def merge_tables_planes_multi(pa, ca: torch.Tensor, na, pb, cb: torch.Tensor,
     w = pa.shape[0]
     cat = torch.cat([torch.cat([pa, pb], dim=1),
                      torch.cat([ca.to(I32), cb.to(I32)], dim=1)])
-    merge_sorted_runs(cat, cap)
+    cat = merge_sorted_runs(cat, cap)
     inv = torch.arange(2 * cap, device=cat.device) >= (na + nb)
     return count_sorted_planes_multi(cat[:w], inv, cat[w:], cap_out=cap_out)
 
@@ -323,8 +326,9 @@ def _encode_invalid(planes: torch.Tensor, valid: torch.Tensor,
 
 
 def sort_planes(planes, tile_log2: int | None = None) -> torch.Tensor:
-    """Sort power-of-two limb planes ascending (sentinels to the tail), in
-    place for a (P, N) tensor.
+    """Sort power-of-two limb planes ascending (sentinels to the tail).
+    Returns the sorted tensor; a (P, N) argument is used as scratch and
+    its contents are given up.
 
     Every plane is a key: payload planes (the JAX ``n_keys`` split) ride
     as least-significant keys, so callers may only pass payloads whose
@@ -345,7 +349,7 @@ def count_planes(planes, valid: torch.Tensor,
     n_keys = enc.shape[0]
     if weights is not None:
         enc = torch.cat([enc, weights.to(I32)[None, :]])
-    sort_planes(enc)
+    enc = sort_planes(enc)
     if extra:
         inv = enc[0] != 0
         kplanes = enc[1:n_keys]
@@ -369,7 +373,7 @@ def count_planes_multibank(planes, valid: torch.Tensor,
     enc, extra = _encode_invalid(planes, valid, spare_bits)
     n_keys = enc.shape[0]
     enc = torch.cat([enc, bank_ids.to(I32)[None, :]])
-    sort_planes(enc)
+    enc = sort_planes(enc)
     if extra:
         inv = enc[0] != 0
         kplanes = enc[1:n_keys]
@@ -404,7 +408,7 @@ def merge_tables_planes(pa, ca: torch.Tensor, na, pb, cb: torch.Tensor, nb,
 
     pa/pb: (W, Ca)/(W, Cb) int32 planes (power-of-two capacities,
     sentinel tails); ca/cb: int32 counts; na/nb: live rows (ints or 0-d
-    tensors). One bitonic merge level with the counts riding as the least
+    tensors). One merge level with the counts riding as the least
     significant key (distinct keys inside each table make the order
     total), then the distinct reduce. Returns (planes, counts, n,
     overflow) at capacity cap_out.
@@ -419,7 +423,7 @@ def merge_tables_planes(pa, ca: torch.Tensor, na, pb, cb: torch.Tensor, nb,
     cat[:w, cap:] = pb
     cat[w, :cap] = ca
     cat[w, cap:] = cb
-    merge_sorted_runs(cat, cap)
+    cat = merge_sorted_runs(cat, cap)
     idx = torch.arange(2 * cap, device=cat.device)
     inv = idx >= (na + nb)
     return count_sorted_planes(cat[:w], inv, weights=cat[w],

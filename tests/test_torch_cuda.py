@@ -1,5 +1,5 @@
 """gatb_core_tpu_torch on a CUDA card: each kernel against its plain
-PyTorch twin (bit for bit), and a count on the card against the same
+PyTorch version (bit for bit), and a count on the card against the same
 count on the CPU and the dict ground truth.
 
 Every test here needs a card and skips without one. The file imports
@@ -39,21 +39,39 @@ def _planes(w, n, seed, device):
 def test_kernels_match_plain(cuda, w, n):
     x = _planes(w, n, seed=n + w, device=cuda)
     tile = 1 << S.tile_log2_for(w, n)
-    before = dict(S.launches)
     assert torch.equal(S.tile_sort(x.clone(), tile),
                        S.tile_sort_plain(x, tile))
-    if n >= 2 * tile:
-        assert torch.equal(S.merge_stage(x.clone(), tile, tile),
-                           S.merge_stage_plain(x, tile, tile))
-        assert torch.equal(S.merge_stage(x.clone(), tile, tile // 2),
-                           S.merge_stage_plain(x, tile, tile // 2))
-    assert torch.equal(S.tile_merge(x.clone(), tile),
-                       S.tile_merge_plain(x, tile))
+    assert (w, n, tile) in S.launch_shapes["tile_sort"]
+    # one merge level over ascending runs, at the default tile and a small one
+    run = min(tile, n // 2)
+    a = S.tile_sort_plain(x, run)
+    for mt in sorted({min(S.merge_tile_rows(w), 2 * run), 64}):
+        split = S.merge_partition(a, run, mt)
+        assert torch.equal(split, S.merge_partition_plain(a, run, mt))
+        assert torch.equal(S.merge_tiles(a, run, split, mt),
+                           S.merge_tiles_plain(a, run, split, mt))
+        assert (w, n, run, mt) in S.launch_shapes["merge_partition"]
+        assert (w, n, run, mt) in S.launch_shapes["merge_tiles"]
+    # the sort: one tile_sort, then two launches per doubling of the run
+    before = dict(S.launches)
     assert torch.equal(S.sort_u32_limbs(x.clone()),
                        S.sort_u32_limbs_plain(x))
-    assert S.launches["tile_sort"] > before["tile_sort"]
-    assert S.launches["tile_merge"] > before["tile_merge"]
-    assert (w, n, tile) in S.launch_shapes["tile_sort"]
+    levels = (n // tile).bit_length() - 1
+    assert S.launches["tile_sort"] == before["tile_sort"] + 1
+    assert S.launches["merge_partition"] == before["merge_partition"] + levels
+    assert S.launches["merge_tiles"] == before["merge_tiles"] + levels
+
+
+@pytest.mark.parametrize("w,n,run", [(2, 2, 1), (3, 4, 1), (3, 1 << 14, 256)])
+def test_merge_tiles_unaligned_matches_plain(cuda, w, n, run):
+    """The kernel's 4-byte path: too few rows for 16-byte words, and planes
+    whose storage is not 16-byte aligned."""
+    runs = S.tile_sort_plain(_planes(w, n, seed=n, device=cuda), run)
+    shifted = torch.empty(w * n + 1, dtype=torch.int32,
+                          device=cuda)[1:].view(w, n)
+    shifted.copy_(runs)
+    assert torch.equal(S.merge_sorted_runs(shifted, run),
+                       S.merge_sorted_runs_plain(runs, run))
 
 
 def test_merge_sorted_runs_matches_plain(cuda):
@@ -62,8 +80,11 @@ def test_merge_sorted_runs_matches_plain(cuda):
     halves = torch.cat([S.sort_u32_limbs_plain(x[:, :run].contiguous()),
                         S.sort_u32_limbs_plain(x[:, run:].contiguous())],
                        dim=1).contiguous()
+    before = dict(S.launches)
     assert torch.equal(S.merge_sorted_runs(halves, run),
                        S.sort_u32_limbs_plain(x))
+    assert S.launches["merge_partition"] == before["merge_partition"] + 1
+    assert S.launches["merge_tiles"] == before["merge_tiles"] + 1
 
 
 def test_count_on_card_matches_cpu(cuda):

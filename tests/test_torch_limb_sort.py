@@ -1,10 +1,11 @@
 """gatb_core_tpu_torch limb sort and merge against the JAX package.
 
 On the CPU the wrappers run their plain PyTorch versions through the
-same tile/merge orchestration the CUDA kernels take on the card. The
+same orchestration the CUDA kernels take on the card (sorted tiles, then
+merge levels of a merge-path partition and a tile merge each). The
 JAX side is the Pallas ``sort_u32_limbs`` in interpret mode and
 ``jax.lax.sort(num_keys=w)``; outputs are integers and must be equal.
-The kernels themselves are held to these twins on a card by
+The kernels themselves are held to these plain versions on a card by
 tests/test_torch_cuda.py.
 """
 
@@ -77,24 +78,97 @@ def test_rejects_non_power_of_two():
 
 
 def test_plain_twins_are_one_network():
-    """The plain stage twins compose into the full sort, and a partial
-    merge (stop_j at the tile) plus the tile sweep completes it."""
+    """The plain versions compose into the full sort: sorted tiles, then
+    per level the partition and the tile merge; and one level of them is
+    the merge of two sorted halves."""
     planes = planes_to_torch(_planes(3, 1024, seed=5))
     before = dict(S.launches)
     x = S.tile_sort_plain(planes, 64)
     run = 64
     while run < 1024:
-        j = run
-        while j >= 64:
-            x = S.merge_stage_plain(x, run, j)
-            j //= 2
-        x = S.tile_merge_plain(x, 64)
+        split = S.merge_partition_plain(x, run, 32)
+        x = S.merge_tiles_plain(x, run, split, 32)
         run *= 2
     assert torch.equal(x, S.sort_u32_limbs_plain(planes))
     y = S.sort_u32_limbs_plain(planes[:, :512].contiguous())
     z = S.sort_u32_limbs_plain(planes[:, 512:].contiguous())
-    m = S.merge_sorted_runs(torch.cat([y, z], 1), 512, stop_j=64,
-                            tile_log2=6)
-    assert torch.equal(S.tile_merge(m, 64), S.sort_u32_limbs_plain(planes))
+    halves = torch.cat([y, z], 1)
+    kept = halves.clone()
+    m = S.merge_sorted_runs(halves, 512, tile_log2=6)
+    assert torch.equal(m, S.sort_u32_limbs_plain(planes))
+    assert torch.equal(m, S.merge_sorted_runs_plain(halves, 512))
+    assert torch.equal(halves, kept)     # a merge leaves its input alone
     assert S.launches == before      # CPU tensors launch no kernel
 
+
+def _sorted_runs(w, n, run, kind, seed):
+    """(w, n) uint32 planes of ascending runs of length ``run``."""
+    rng = np.random.default_rng(seed)
+    ones = np.uint32(0xFFFFFFFF)
+    if kind == "random":
+        x = rng.integers(0, 1 << 32, (w, n), dtype=np.uint64).astype(np.uint32)
+    else:
+        # two values per plane, the top bit set in some: heavy ties inside
+        # and across the runs
+        x = rng.integers(0, 2, (w, n), dtype=np.uint32)
+        x[0] |= rng.integers(0, 2, n, dtype=np.uint32) << np.uint32(31)
+    if kind == "sentinel_tails":         # every run ends in all-ones rows
+        for s in range(0, n, run):
+            x[:, s + run - rng.integers(1, run + 1):s + run] = ones
+    if kind == "second_all_sentinel":    # an accumulator beside nothing
+        for s in range(run, n, 2 * run):
+            x[:, s:s + run] = ones
+    for s in range(0, n, run):
+        order = np.lexsort(tuple(x[p, s:s + run] for p in range(w - 1, -1, -1)))
+        x[:, s:s + run] = x[:, s:s + run][:, order]
+    return x
+
+
+def _split_truth(x, run, tile):
+    """The split array from a stable numpy lexsort of every pair of runs
+    (stable: on a tie the first run's row comes first)."""
+    w, n = x.shape
+    out = []
+    for pair, s in enumerate(range(0, n, 2 * run)):
+        rows = x[:, s:s + 2 * run]
+        order = np.lexsort(tuple(rows[p] for p in range(w - 1, -1, -1)))
+        from_first = np.concatenate([[0], np.cumsum(order < run)])
+        out.extend(pair * run + from_first[0:2 * run:tile])
+    return np.array(out + [n // 2], dtype=np.int64)
+
+
+@pytest.mark.parametrize("w", [1, 3, 9])
+@pytest.mark.parametrize("n,run,tile", [(512, 64, 16), (256, 32, 32),
+                                        (512, 128, 256), (64, 1, 2)])
+@pytest.mark.parametrize("kind", ["random", "ties", "sentinel_tails",
+                                  "second_all_sentinel"])
+def test_merge_partition_plain_matches_numpy(w, n, run, tile, kind):
+    x = _sorted_runs(w, n, run, kind, seed=w * 1000 + n + run)
+    planes = planes_to_torch(tuple(x))
+    split = S.merge_partition_plain(planes, run, tile)
+    assert split.dtype == torch.int64
+    assert np.array_equal(split.numpy(), _split_truth(x, run, tile))
+    # the wrappers take the same plain versions on a CPU tensor
+    assert torch.equal(S.merge_partition(planes, run, tile), split)
+    merged = S.merge_tiles(planes, run, split, tile)
+    assert torch.equal(merged, S.merge_sorted_runs_plain(planes, run))
+    assert torch.equal(merged, S.merge_tiles_plain(planes, run, split, tile))
+
+
+def test_merge_tile_rows_and_argument_checks():
+    for w, rows in ((1, 4096), (2, 2048), (3, 2048), (5, 1024), (9, 512),
+                    (64, 256), (200, 256)):
+        assert S.merge_tile_rows(w) == rows
+        assert S.merge_smem_bytes(w, rows) <= S.SMEM_BYTES
+    with pytest.raises(ValueError):
+        S.merge_tile_rows(300)
+    x = torch.zeros((2, 256), dtype=torch.int32)
+    split = S.merge_partition(x, 64, 32)
+    with pytest.raises(ValueError):      # a tile longer than a pair of runs
+        S.merge_partition(x, 8, 32)
+    with pytest.raises(ValueError):      # out must be another tensor
+        S.merge_tiles(x, 64, split, 32, out=x)
+    with pytest.raises(ValueError):      # a split array of another tiling
+        S.merge_tiles(x, 64, split[:-1].contiguous(), 32)
+    with pytest.raises(TypeError):       # stop_j went with the network
+        S.merge_sorted_runs(x, 64, stop_j=32)
