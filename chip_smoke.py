@@ -17,22 +17,29 @@ against its plain PyTorch version, then counts k-mers through the port's
 public entry points on synthetic banks and checks every result against a
 numpy ground truth computed here:
 
-  1. kernels: tile_sort, merge_partition (split arrays equal) and
-     merge_tiles bit for bit against their plain versions, P in {2, 3, 4,
-     5, 9} planes, N from 2^10 to 2^25, random / heavy-duplicate /
-     sentinel / all-equal inputs; the full sort and merge_sorted_runs
-     (run 2^24, and 3 x 2^26 rows at run 2^25, partition and tile merge
-     held there too) against the plain sort; merge_tiles' 4-byte path
-     (planes off 16-byte alignment, 2 and 4 rows); the launch counters of
-     one merge level (two launches whatever the run) and of a sort of
-     2^25 rows (1 + 2 * 11); bitonic_u64 against its plain version for N
-     from 2^8 to 2^22 on the same four kinds of input; then each
-     kernel's time at the shapes the stress count gives it (bitonic_u64:
-     N = 2^14 and 2^22; CUDA events, median after warm-up) beside its
-     plain version's and, where one PyTorch call computes the same
-     function, that call's (torch.sort), with the outputs held against
-     each other; and the fetch of a 30M-row table, whole, packed and
-     streamed;
+  1. kernels: tile_sort bit for bit against its plain version for 1, 2,
+     3, 4, 5 and 9 planes (rows in registers) and 7 (the kernel's path for
+     any other number), at every tile from 2 rows to the largest it takes
+     and on row counts that are no power of two, on random /
+     heavy-duplicate / sorted / reversed / all-equal / half-sentinel /
+     all-sentinel inputs; tile_sort at the sort's own tile,
+     merge_partition (split arrays equal) and merge_tiles against their
+     plain versions for N from 2^10 to 2^25; the full sort and
+     merge_sorted_runs (run 2^24, and 3 x 2^26 rows at run 2^25, partition
+     and tile merge held there too) against the plain sort; merge_tiles'
+     and tile_sort's 4-byte paths (planes off 16-byte alignment, 2 and 4
+     rows); the launch
+     counters of one merge level (two launches whatever the run), of a
+     sort of 2^25 rows and of bitonic_sort_u64 (1 + 2 * (log2 N - log2
+     tile), the tile read from the wrappers' choosers); bitonic_sort_u64
+     against its plain version for every N from 2^7 to 2^22 (one tile at
+     2^14, two at 2^15); then each kernel's time at the shapes the stress
+     count gives it (bitonic_u64: N = 2^14 and 2^22; CUDA events, median
+     after warm-up) beside its plain version's and, where one PyTorch call
+     computes the same function, that call's (torch.sort), with the
+     outputs held against each other, and the whole sort of 2 and of 4
+     planes x 2^25 rows beside torch.sort; and the fetch of a 30M-row
+     table, whole, packed and streamed;
   2. bench bank: 200k x 150 bp reads of a 1 Mbp genome (seed 7, the
      generator of bench.make_dataset), k=31, abundance-min 3;
   3. multi-limb: 20k reads of the same generator, k=63 (W=4);
@@ -55,9 +62,9 @@ numpy ground truth computed here:
 
 Phases 2-4 and 6-8 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
-have launched in each (the three limb-sort kernels in the counts,
-bitonic_u64 in phase 8). The stress counts also log the peak of device
-memory allocated during the count.
+have launched in each (the three limb-sort kernels in the counts;
+bitonic_u64 and the two merge kernels in phase 8). The stress counts also
+log the peak of device memory allocated during the count.
 Exits non-zero on any failure (and at once without a CUDA device). The
 line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is the JSON result.
@@ -255,9 +262,21 @@ def kernel_inputs(P: int, n: int, kind: str, gen, torch):
                           device="cuda", generator=gen)
         x[:, ::3] = -1
         x[:, n // 2:] = -1
+    elif kind in ("sorted", "reversed"):
+        from gatb_core_tpu_torch.ops.limb_sort import sort_u32_limbs_plain
+
+        x = sort_u32_limbs_plain(kernel_inputs(P, n, "random", gen, torch))
+        if kind == "reversed":
+            x = x.flip(1)
+    elif kind == "all_sentinel":
+        x = torch.full((P, n), -1, dtype=torch.int32, device="cuda")
     else:
         x = torch.full((P, n), 12345, dtype=torch.int32, device="cuda")
     return x.contiguous()
+
+
+def log2(n: int) -> int:
+    return n.bit_length() - 1
 
 
 def max_abs_err(a, b) -> int:
@@ -286,14 +305,39 @@ def phase_kernels(torch, S):
     err = {name: 0 for name in REPLACES}
     err_sort = 0
     n_checks = 0
-    for P in (2, 3, 4, 5, 9):
+    # tile_sort at every tile it takes: rows in registers for the planes of
+    # SORT_REGISTER_PLANES, sorted slots for any other number (7 here);
+    # then row counts that are no power of two (a last block half empty)
+    check(7 not in S.SORT_REGISTER_PLANES,
+          "phase 1: 7 planes no longer take tile_sort's generic path")
+    for P in S.SORT_REGISTER_PLANES + (7,):
+        n = 1 << 16
+        for kind in ("random", "duplicates", "sorted", "reversed", "equal",
+                     "sentinels", "all_sentinel"):
+            x = kernel_inputs(P, n, kind, gen, torch)
+            tile = 2
+            while tile <= S.sort_tile_max(P):
+                err["tile_sort"] = max(err["tile_sort"], max_abs_err(
+                    S.tile_sort(x.clone(), tile),
+                    S.tile_sort_plain(x, tile)))
+                n_checks += 1
+                tile *= 2
+        for n, tile in ((6, 2), (3 * 64, 64), (5 * 1024, 1024),
+                        (3 * S.sort_tile_max(P), S.sort_tile_max(P))):
+            x = kernel_inputs(P, n, "duplicates", gen, torch)
+            err["tile_sort"] = max(err["tile_sort"], max_abs_err(
+                S.tile_sort(x.clone(), tile), S.tile_sort_plain(x, tile)))
+            n_checks += 1
+    for P in (1, 2, 3, 4, 5, 7, 9):
         for lg in (10, 13, 16, 20, 25):
+            if lg == 25 and P in (1, 7):
+                continue
             n = 1 << lg
             kinds = ("random", "duplicates", "sentinels", "equal") \
                 if lg < 25 else ("duplicates", "sentinels")
             for kind in kinds:
                 x = kernel_inputs(P, n, kind, gen, torch)
-                tile = 1 << S.tile_log2_for(P, n)
+                tile = min(S.sort_tile_rows(P), n)
                 a = S.tile_sort(x.clone(), tile)
                 err["tile_sort"] = max(err["tile_sort"], max_abs_err(
                     a, S.tile_sort_plain(x, tile)))
@@ -332,9 +376,14 @@ def phase_kernels(torch, S):
         shifted.copy_(runs)
         check_merge_level(S, shifted, run,
                           min(S.merge_tile_rows(P), 2 * run), err)
+        # tile_sort's 4-byte path on the same planes
+        tile = min(S.sort_tile_max(P), n)
+        ref = S.tile_sort_plain(shifted, tile)
+        err["tile_sort"] = max(err["tile_sort"],
+                               max_abs_err(S.tile_sort(shifted, tile), ref))
         n_checks += 1
-    # launches: two per merge level whatever the run, 1 + 2 * 11 for a sort
-    # of 2^25 rows
+    # launches: two per merge level whatever the run; 1 + 2 * (log2 N - log2
+    # tile) for a sort and for bitonic_sort_u64, the tile from the choosers
     x = S.sort_u32_limbs(kernel_inputs(2, 1 << 25, "random", gen, torch))
     for run in (1, 1 << 7, 1 << 14, 1 << 20, 1 << 24):
         S.reset_launches()
@@ -343,25 +392,33 @@ def phase_kernels(torch, S):
                              "merge_tiles": 1, "bitonic_u64": 0},
               f"a merge level of run {run} is not two launches")
     x = kernel_inputs(2, 1 << 25, "random", gen, torch)
+    levels = 25 - log2(S.sort_tile_rows(2))
     S.reset_launches()
     S.sort_u32_limbs(x)
     log(f"launches of one merge level: 2 at every run; of sort_u32_limbs "
-        f"on 2 x 2^25 rows: {dict(S.launches)}")
-    check(S.launches == {"tile_sort": 1, "merge_partition": 11,
-                         "merge_tiles": 11, "bitonic_u64": 0},
-          "sort_u32_limbs of 2^25 rows is not 1 + 2 * 11 launches")
-    S.reset_launches()
+        f"on 2 x 2^25 rows (tile {S.sort_tile_rows(2)}): {dict(S.launches)}")
+    check(S.launches == {"tile_sort": 1, "merge_partition": levels,
+                         "merge_tiles": levels, "bitonic_u64": 0},
+          f"sort_u32_limbs of 2^25 rows is not 1 + 2 * {levels} launches")
     del x
-    # bitonic_u64: one block below 2^14 pairs, the cooperative grid above
-    for lg in (8, 10, 13, 14, 15, 16, 18, 20, 22):
+    # bitonic_sort_u64: one bitonic_u64 launch, then the merge levels; one
+    # tile at N = U64_TILE_ROWS, two at twice that
+    for lg in range(7, 23):
+        levels = max(0, lg - log2(S.U64_TILE_ROWS))
         for kind in ("random", "duplicates", "sentinels", "equal"):
             x = kernel_inputs(2, 1 << lg, kind, gen, torch)
+            S.reset_launches()
             got = torch.stack(S.bitonic_sort_u64(x[0], x[1]))
+            check(S.launches == {"tile_sort": 0, "merge_partition": levels,
+                                 "merge_tiles": levels, "bitonic_u64": 1},
+                  f"bitonic_sort_u64 of 2^{lg} pairs is not 1 + 2 * "
+                  f"{levels} launches")
             ref = torch.stack(S.bitonic_sort_u64_plain(x[0], x[1]))
             err["bitonic_u64"] = max(err["bitonic_u64"],
                                      max_abs_err(got, ref))
             n_checks += 1
             del x, got, ref
+    S.reset_launches()
     torch.cuda.synchronize()
     log(f"phase 1 kernels: {n_checks} inputs, max |kernel - plain| "
         f"{err}, full sort/merge vs plain sort {err_sort}")
@@ -399,14 +456,11 @@ def bound(n_bytes: int, n_ops: int):
                                                            "operations")
 
 
-def network_ops(n: int, first_level: int, last_level: int,
-                stop_log2: int = 0) -> int:
-    """Compare-exchanges of the bitonic levels 2^first .. 2^last over n
-    rows, each level run down to stage j = 2^stop_log2: n/2 per stage.
-    One word comparison each is the least these inputs need (a further
-    plane is compared only on a tie in the planes before it)."""
-    stages = sum(lv - stop_log2 for lv in range(first_level, last_level + 1))
-    return n // 2 * stages
+def sort_ops(n: int, run: int) -> int:
+    """Comparisons a comparison sort of every run of ``run`` rows among n
+    needs at the least: log2(run) per row, one word comparison each (a
+    further plane is compared only on a tie in the planes before it)."""
+    return n * log2(run)
 
 
 def partition_work(P: int, n: int, run: int, tile: int):
@@ -420,11 +474,11 @@ def partition_work(P: int, n: int, run: int, tile: int):
 def phase_timing(torch, S, card: str):
     """Each kernel and its plain version at the stress count's shapes:
     the raw sort (2 planes x 2^25 rows) and the fold merge (3 planes x
-    2^26 rows, runs of 2^25); bitonic_u64 at 2^14 and 2^22 pairs. The
-    outputs of each pair are held against each other. Each bound is
-    computed from the timed input: every byte read once and written once,
-    one comparison per compare-exchange of a network and per output row of
-    a merge. The library call is one torch.sort of the same rows joined
+    2^26 rows, runs of 2^25); bitonic_u64 at 2^14 and 2^22 pairs; the
+    whole sort also at 4 planes. The outputs of each pair are held against
+    each other. Each bound is computed from the timed input: every byte
+    read once and written once, log2(run) comparisons per row of a sort
+    and one per output row of a merge. The library call is one torch.sort of the same rows joined
     into int64 keys (the join is made before the clock starts); no PyTorch
     call merges sorted runs of multi-word rows or finds their merge path.
     Returns {name: {ms, plain_ms, library_ms, bound_ms, bound_by}} and
@@ -433,7 +487,7 @@ def phase_timing(torch, S, card: str):
     gen.manual_seed(7)
     raw = torch.randint(-2**31, 2**31 - 1, (2, 1 << 25), dtype=torch.int32,
                         device="cuda", generator=gen)
-    t_sort = 1 << S.tile_log2_for(2, 1 << 25)
+    t_sort = S.sort_tile_rows(2)
     run = 1 << 25
     fold = torch.randint(-2**31, 2**31 - 1, (3, 2 * run), dtype=torch.int32,
                          device="cuda", generator=gen)
@@ -450,7 +504,6 @@ def phase_timing(torch, S, card: str):
         return (((x[0].long() & 0xFFFFFFFF) << 32)
                 | (x[1].long() & 0xFFFFFFFF)) ^ top
 
-    lt = t_sort.bit_length() - 1
     raw_keys = keys_of(raw)
     # name: (kernel, plain, input, whether the call gives up its input,
     #        shape, library call, its input, bytes moved, comparisons)
@@ -461,7 +514,7 @@ def phase_timing(torch, S, card: str):
                       "of the int64 keys along each tile",
                       lambda q: torch.sort(q.view(-1, t_sort), dim=1).values,
                       raw_keys, 2 * raw.numel() * 4,
-                      network_ops(1 << 25, 1, lt)),
+                      sort_ops(1 << 25, t_sort)),
         "merge_partition": (lambda y: S.merge_partition(y, run, t_fold),
                             lambda y: S.merge_partition_plain(y, run, t_fold),
                             fold, False,
@@ -478,9 +531,7 @@ def phase_timing(torch, S, card: str):
                            "2 x 2^25 rows; plain: stable torch.sort per "
                            "plane; library: one torch.sort of int64 keys",
                            lambda q: torch.sort(q).values, raw_keys,
-                           2 * raw.numel() * 4,
-                           network_ops(1 << 25, 1, lt)
-                           + (25 - lt) * (1 << 25)),
+                           2 * raw.numel() * 4, sort_ops(1 << 25, 1 << 25)),
         "merge_sorted_runs": (lambda y: S.merge_sorted_runs(y, run),
                               lambda y: S.merge_sorted_runs_plain(y, run),
                               fold, False,
@@ -506,8 +557,24 @@ def phase_timing(torch, S, card: str):
             f"max |kernel - plain| {errs[name]}")
         del out, ref
     del raw, fold, raw_keys, split
-    # bitonic_u64: the wrapper sorts copies of its arguments (the two
-    # device copies are inside its time)
+    # the whole sort at 4 planes (k = 63 raw rows). No single PyTorch call
+    # sorts four-word rows; beside it stands torch.sort of one int64 key
+    # per row, half the row's width, the least any version made of
+    # torch.sort calls could take
+    wide = torch.randint(-2**31, 2**31 - 1, (4, 1 << 25), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    ms, out = time_ms(torch, S.sort_u32_limbs, wide)
+    plain_ms, ref = time_ms(torch, S.sort_u32_limbs_plain, wide, fresh=False)
+    half_ms, _ = time_ms(torch, lambda q: torch.sort(q).values, keys_of(wide))
+    errs["sort_u32_limbs@4"] = max_abs_err(out, ref)
+    b_ms, b_by = bound(2 * wide.numel() * 4, sort_ops(1 << 25, 1 << 25))
+    log(f"time sort_u32_limbs: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.sort of the first two planes as int64 keys {half_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms by {b_by} (4 x 2^25 rows; {card}); "
+        f"max |kernel - plain| {errs['sort_u32_limbs@4']}")
+    del wide, out, ref
+    # bitonic_sort_u64: the bitonic_u64 launch and the merge levels that
+    # finish the sort, as a caller gets them
     for lg in (14, 22):
         n = 1 << lg
         x = torch.randint(-2**31, 2**31 - 1, (2, n), dtype=torch.int32,
@@ -522,7 +589,7 @@ def phase_timing(torch, S, card: str):
         name = f"bitonic_u64@2^{lg}"
         errs[name] = max(max_abs_err(torch.stack(out), torch.stack(ref)),
                          int((keys_of(torch.stack(out)) != lib_out).sum()))
-        b_ms, b_by = bound(2 * x.numel() * 4, network_ops(n, 1, lg))
+        b_ms, b_by = bound(2 * x.numel() * 4, sort_ops(n, n))
         times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
         log(f"time {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -612,12 +679,13 @@ def phase_shapes(torch, S, shapes: dict) -> dict:
             check_merge_level(S, runs, run, tile, err)
             n_checks += 2
             del runs
-    for (n,) in sorted(shapes["bitonic_u64"]):
+    for n, tile in sorted(shapes["bitonic_u64"]):
         for kind in ("random", "duplicates"):
             x = kernel_inputs(2, n, kind, gen, torch)
             ref = torch.stack(S.bitonic_sort_u64_plain(x[0], x[1]))
             err["bitonic_u64"] = max(err["bitonic_u64"], max_abs_err(
-                torch.stack(S.bitonic_sort_u64(x[0], x[1])), ref))
+                torch.stack(S.bitonic_sort_u64(x[0], x[1],
+                                               tile_log2=log2(tile))), ref))
             n_checks += 1
             del x, ref
     torch.cuda.synchronize()
@@ -887,7 +955,7 @@ def phase_bitonic(tally, S, torch, truth):
                           .view(np.int32)).cuda()
     (oh, ol), got = tally.counted(
         S, "phase 8 bitonic_sort_u64", lambda: S.bitonic_sort_u64(hi, lo),
-        path=("bitonic_u64",))
+        path=("bitonic_u64", "merge_partition", "merge_tiles"))
     out = (oh.cpu().numpy().view(np.uint32).astype(np.uint64)
            << np.uint64(32)) | ol.cpu().numpy().view(np.uint32)
     check(np.array_equal(out, np.sort(keys)),

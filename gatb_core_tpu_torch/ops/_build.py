@@ -75,14 +75,18 @@ def nvcc_path() -> str:
     return found
 
 
-def load_cuda(stem: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``ops/csrc/<stem>.cu``."""
+def load_cuda(stem: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``ops/csrc/<stem>.cu``. ``defines`` are
+    ``-D`` macros (``NAME=VALUE``) of a variant build, which is a library
+    of its own."""
+    key = " ".join((stem,) + tuple(defines))
     with _lock:
-        lib = _libs.get(stem)
+        lib = _libs.get(key)
         if lib is None:
+            flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
             so = compile_shared([nvcc_path()],
                                 os.path.join(CSRC_DIR, f"{stem}.cu"),
-                                NVCC_FLAGS, stem)
+                                flags, stem)
             lib = ctypes.CDLL(so)
-            _libs[stem] = lib
+            _libs[key] = lib
         return lib

@@ -17,10 +17,24 @@
 // planes (plane 0 most significant). The buffers are torch int32 storage;
 // the kernels read them as uint32_t. n is a power of two.
 //
-// tile_sort is the bitonic network of the TPU kernel: every stage reads and
-// writes each row it exchanges, so it runs all log2(tile) * (log2(tile) + 1)
-// / 2 stages of a tile in shared memory (one block per tile, the tile sized
-// to fill up to 227 KB) and touches device memory once.
+// tile_sort and bitonic_u64 are NOT the TPU's bitonic network either. The
+// network costs log2(T) * (log2(T) + 1) / 2 compare-exchange stages per
+// tile, each a trip of every row through shared memory behind a barrier.
+// Both kernels are one block merge sort, O(T log T) comparisons: a thread
+// loads kItems consecutive rows into registers and sorts them with a fixed
+// compare-exchange network (no shared memory, no barrier); then the sorted
+// runs double log2(T / kItems) times inside the block: every thread puts
+// its rows into shared memory, finds where its kItems output rows begin on
+// the merge path of the pair of runs they belong to (ties take the first
+// run first), and merges them serially back into registers. A round is one
+// write and one read of each row in shared memory plus the search. Rows
+// live in registers, so the number of planes is a template parameter; any
+// other number of planes sorts 32-bit slots into a shared-memory copy of the
+// tile through the same core. What bounds both on this card is bytes (each
+// row read once and written once); what they take beyond that is the
+// rounds' shared-memory traffic. A merge level below costs more than the
+// round that a doubled tile adds, so the tile is the largest the registers
+// allow (sort_max_threads), and the merge levels finish the sort.
 //
 // The merge level is NOT the TPU's network. The TPU merges two sorted runs
 // with log2(2 * run) compare-exchange stages because it has no cheap
@@ -45,10 +59,8 @@
 //   trip through device memory. Nearly all of its time is that trip (the
 //   searches and the serial merge hide behind it), so the tile is kept small
 //   (32 KB of shared memory) and many blocks share an SM.
-// cp.async/TMA staging and a register-resident serial merge are left for
-// later.
+// cp.async/TMA staging is left for later.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -68,57 +80,408 @@ __device__ __forceinline__ bool row_lt(const uint32_t* base, Index stride,
   return false;
 }
 
-__device__ __forceinline__ void row_swap(uint32_t* base, int64_t stride,
-                                         int64_t a, int64_t b, int P) {
-  for (int p = 0; p < P; ++p) {
-    const uint32_t t = base[p * stride + a];
-    base[p * stride + a] = base[p * stride + b];
-    base[p * stride + b] = t;
+// ---------------------------------------------------------------------------
+// The block merge sort shared by tile_sort and bitonic_u64
+// ---------------------------------------------------------------------------
+
+#ifndef SORT_ITEMS
+#define SORT_ITEMS 16
+#endif
+// rows a thread keeps in registers (a power of two, a multiple of 4)
+constexpr int kItems = SORT_ITEMS;
+static_assert(kItems >= 4 && (kItems & (kItems - 1)) == 0, "SORT_ITEMS");
+
+// Threads a block may have when each of its rows takes `words` registers:
+// the thread's rows, the two heads of the serial merge, two rows of
+// temporaries and about 24 registers of indexes must fit the SM's 65,536
+// registers. The launch bounds tell the compiler, and the tile is at most
+// this many threads times kItems rows.
+constexpr int sort_max_threads(int words) {
+  int threads = 1024;
+  while (threads * (words * (kItems + 4) + 24) > 65536) threads >>= 1;
+  return threads;
+}
+
+// A row of P words in registers, P known at compile time. In shared memory
+// the rows lie plane-major, row i of a plane at word i + i / 32: a thread
+// puts kItems consecutive rows, and the extra word per 32 spreads the
+// threads of a warp over all banks (without it they would meet in
+// 32 / kItems banks). The serial merge's reads follow the data and are not
+// systematic.
+template <int P>
+struct PlaneRow {
+  uint32_t v[P];
+};
+
+template <int P>
+struct PlaneOps {
+  using Row = PlaneRow<P>;
+  uint32_t* s;
+  int stride;  // words of one plane
+  static __host__ __device__ int plane_words(int rows) {
+    return rows + (rows >> 5) + 1;
+  }
+  static __device__ __forceinline__ int at(int i) { return i + (i >> 5); }
+  __device__ __forceinline__ bool lt(const Row& a, const Row& b) const {
+    bool less = a.v[P - 1] < b.v[P - 1];
+#pragma unroll
+    for (int p = P - 2; p >= 0; --p)
+      less = a.v[p] < b.v[p] || (a.v[p] == b.v[p] && less);
+    return less;
+  }
+  __device__ __forceinline__ Row pick(bool first, const Row& a,
+                                      const Row& b) const {
+    Row r;
+#pragma unroll
+    for (int p = 0; p < P; ++p) r.v[p] = first ? a.v[p] : b.v[p];
+    return r;
+  }
+  __device__ __forceinline__ void put(int i, const Row& r) const {
+    const int k = at(i);
+#pragma unroll
+    for (int p = 0; p < P; ++p) s[p * stride + k] = r.v[p];
+  }
+  __device__ __forceinline__ Row get(int i) const {
+    const int k = at(i);
+    Row r;
+#pragma unroll
+    for (int p = 0; p < P; ++p) r.v[p] = s[p * stride + k];
+    return r;
+  }
+  // row i < row j, both in shared memory; a further plane is read on a tie
+  __device__ __forceinline__ bool lt_at(int i, int j) const {
+    return row_lt<int>(s, stride, at(i), at(j), P);
+  }
+};
+
+// A (hi, lo) pair joined into one 64-bit key: one compare per row. 8-byte
+// words take two banks, so the extra word comes every 16 keys.
+struct U64Ops {
+  using Row = unsigned long long;
+  Row* s;
+  static __host__ __device__ int words(int rows) {
+    return rows + (rows >> 4) + 1;
+  }
+  static __device__ __forceinline__ int at(int i) { return i + (i >> 4); }
+  __device__ __forceinline__ bool lt(Row a, Row b) const { return a < b; }
+  __device__ __forceinline__ Row pick(bool first, Row a, Row b) const {
+    return first ? a : b;
+  }
+  __device__ __forceinline__ void put(int i, Row r) const { s[at(i)] = r; }
+  __device__ __forceinline__ Row get(int i) const { return s[at(i)]; }
+  __device__ __forceinline__ bool lt_at(int i, int j) const {
+    return s[at(i)] < s[at(j)];
+  }
+};
+
+// Any number of planes, known only at run time: the tile's rows stay where
+// they were loaded in shared memory (`data`, plane stride `rows`), and what
+// is sorted is each row's slot there, compared through the rows. Rows equal
+// in every plane are identical, so the order of their slots shows nowhere.
+struct SlotOps {
+  using Row = uint32_t;
+  const uint32_t* data;
+  uint32_t* slots;
+  int rows;
+  int P;
+  static __host__ __device__ int slot_words(int rows) {
+    return rows + (rows >> 5) + 1;
+  }
+  static __device__ __forceinline__ int at(int i) { return i + (i >> 5); }
+  __device__ __forceinline__ bool lt(Row a, Row b) const {
+    return row_lt<int>(data, rows, static_cast<int>(a), static_cast<int>(b),
+                       P);
+  }
+  __device__ __forceinline__ Row pick(bool first, Row a, Row b) const {
+    return first ? a : b;
+  }
+  __device__ __forceinline__ void put(int i, Row r) const {
+    slots[at(i)] = r;
+  }
+  __device__ __forceinline__ Row get(int i) const { return slots[at(i)]; }
+  __device__ __forceinline__ bool lt_at(int i, int j) const {
+    return lt(get(i), get(j));
+  }
+};
+
+// The compare-exchanges of Batcher's odd-even merge sort of kItems rows, in
+// order: comparator x exchanges rows lo and lo + gap, and belongs to the
+// level that leaves runs of `level` rows sorted (so a tile below kItems rows
+// stops early). Worked out at compile time: every register index below is a
+// constant.
+struct Comparator {
+  int lo, gap, level;
+};
+
+__host__ __device__ constexpr Comparator sort_comparator(int x) {
+  int seen = 0;
+  for (int p = 1; p < kItems; p <<= 1)
+    for (int k = p; k >= 1; k >>= 1)
+      for (int j = k % p; j + k < kItems; j += 2 * k)
+        for (int i = 0; i < k && i + j + k < kItems; ++i)
+          if ((i + j) / (2 * p) == (i + j + k) / (2 * p))
+            if (seen++ == x) return Comparator{i + j, k, 2 * p};
+  return Comparator{0, 0, 0};  // past the last one
+}
+
+template <int X, class Ops>
+__device__ __forceinline__ void sort_thread_rows(
+    typename Ops::Row (&r)[kItems], const Ops& ops, int tile) {
+  constexpr Comparator c = sort_comparator(X);
+  if constexpr (c.gap > 0) {
+    if (c.level <= tile) {
+      const typename Ops::Row a = r[c.lo];
+      const typename Ops::Row b = r[c.lo + c.gap];
+      const bool swap = ops.lt(b, a);
+      r[c.lo] = ops.pick(swap, b, a);
+      r[c.lo + c.gap] = ops.pick(swap, a, b);
+    }
+    sort_thread_rows<X + 1>(r, ops, tile);
   }
 }
 
-// One compare-exchange stage of partner distance j over a shared-memory
-// tile: the pair whose low index has bit big_k set sorts descending, every
-// other pair ascending (the bitonic sort network, direction from i & K as in
-// pallas_sort._stage_exchange).
-__device__ __forceinline__ void smem_stage(uint32_t* s, int tile, int P,
-                                           int j, int big_k) {
-  for (int t = threadIdx.x; t < tile / 2; t += blockDim.x) {
-    const int lo = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-    const int hi = lo + j;
-    const bool asc = (lo & big_k) == 0;
-    const bool sw = asc ? row_lt<int64_t>(s, tile, hi, lo, P)
-                        : row_lt<int64_t>(s, tile, lo, hi, P);
-    if (sw) row_swap(s, tile, lo, hi, P);
+// Sorts every aligned run of `tile` rows of the block's blockDim.x * kItems
+// rows ascending; tile is a power of two that divides them. On entry r holds
+// the thread's kItems consecutive rows (block rows threadIdx.x * kItems ..),
+// on return the rows of the same positions of the sorted block. The shared
+// memory behind `ops` needs no initial contents; one word past the block's
+// last row is read and never used.
+template <class Ops>
+__device__ __forceinline__ void block_merge_sort(
+    typename Ops::Row (&r)[kItems], const Ops& ops, int tile) {
+  using Row = typename Ops::Row;
+  sort_thread_rows<0>(r, ops, tile);
+  const int d0 = threadIdx.x * kItems;
+  for (int run = kItems; run < tile; run <<= 1) {
+    __syncthreads();  // the round before has read what this one overwrites
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) ops.put(d0 + e, r[e]);
+    __syncthreads();
+    // the thread's output rows d .. d + kItems of the pair of runs
+    // [first, first + run) and [first + run, first + 2 * run): search the
+    // diagonal d of their merge path as merge_path below does
+    const int first = d0 & ~(2 * run - 1);
+    const int d = d0 - first;
+    int lo = d > run ? d - run : 0;
+    int hi = d < run ? d : run;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (!ops.lt_at(first + run + (d - mid - 1), first + mid))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    const int a_end = first + run;
+    const int b_end = a_end + run;
+    int ai = first + lo;
+    int bi = a_end + (d - lo);
+    Row ka = ops.get(ai);  // at a run's end these read the next row, unused
+    Row kb = ops.get(bi);
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const bool take_a = bi >= b_end || (ai < a_end && !ops.lt(kb, ka));
+      r[e] = ops.pick(take_a, ka, kb);
+      const int next = take_a ? ++ai : ++bi;
+      const Row x = ops.get(next);
+      ka = ops.pick(take_a, x, ka);
+      kb = ops.pick(take_a, kb, x);
+    }
   }
-  __syncthreads();
 }
 
-__device__ __forceinline__ void load_tile(uint32_t* s, const uint32_t* g,
-                                          int64_t n, int64_t base, int tile,
-                                          int P) {
-  for (int p = 0; p < P; ++p)
-    for (int i = threadIdx.x; i < tile; i += blockDim.x)
-      s[p * tile + i] = g[p * n + base + i];
-  __syncthreads();
-}
-
-__device__ __forceinline__ void store_tile(const uint32_t* s, uint32_t* g,
-                                           int64_t n, int64_t base, int tile,
-                                           int P) {
-  for (int p = 0; p < P; ++p)
-    for (int i = threadIdx.x; i < tile; i += blockDim.x)
-      g[p * n + base + i] = s[p * tile + i];
-}
-
-__global__ void tile_sort_kernel(uint32_t* planes, int64_t n, int P,
-                                 int tile) {
+// tile_sort for P planes known at compile time: each block sorts the tiles
+// of its blockDim.x * kItems rows (one tile, or several of a tile below 32 *
+// kItems rows), in place. kVec (n a multiple of kItems, planes 16-byte
+// aligned): a thread's rows move as 16-byte words; tiles are aligned powers
+// of two, so no misalignment has to be carried. Rows past n (a last block
+// that n does not fill) are all-ones in registers and are not stored: they
+// lie in tiles of their own.
+template <int P, bool kVec>
+__global__ void __launch_bounds__(sort_max_threads(P))
+    tile_sort_kernel(uint32_t* planes, int64_t n, int tile) {
   extern __shared__ uint32_t s[];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  load_tile(s, planes, n, base, tile, P);
-  for (int big_k = 2; big_k <= tile; big_k <<= 1)
-    for (int j = big_k >> 1; j > 0; j >>= 1) smem_stage(s, tile, P, j, big_k);
-  store_tile(s, planes, n, base, tile, P);
+  const int rows = blockDim.x * kItems;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * rows +
+                       threadIdx.x * kItems;
+  PlaneRow<P> r[kItems];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const uint32_t* g = planes + p * n + base;
+    if (kVec) {
+#pragma unroll
+      for (int q = 0; q < kItems / 4; ++q) {
+        const uint4 w = base < n ? reinterpret_cast<const uint4*>(g)[q]
+                                 : make_uint4(~0u, ~0u, ~0u, ~0u);
+        r[4 * q].v[p] = w.x;
+        r[4 * q + 1].v[p] = w.y;
+        r[4 * q + 2].v[p] = w.z;
+        r[4 * q + 3].v[p] = w.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kItems; ++e) r[e].v[p] = base + e < n ? g[e] : ~0u;
+    }
+  }
+  const PlaneOps<P> ops{s, PlaneOps<P>::plane_words(rows)};
+  block_merge_sort(r, ops, tile);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    uint32_t* g = planes + p * n + base;
+    if (kVec) {
+      if (base < n) {
+#pragma unroll
+        for (int q = 0; q < kItems / 4; ++q)
+          reinterpret_cast<uint4*>(g)[q] =
+              make_uint4(r[4 * q].v[p], r[4 * q + 1].v[p], r[4 * q + 2].v[p],
+                         r[4 * q + 3].v[p]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kItems; ++e)
+        if (base + e < n) g[e] = r[e].v[p];
+    }
+  }
+}
+
+// tile_sort for any other number of planes: the block's rows are copied to
+// shared memory, their slots sorted by the same core, and the rows leave in
+// the order of the sorted slots.
+__global__ void __launch_bounds__(sort_max_threads(1))
+    tile_sort_any_kernel(uint32_t* planes, int64_t n, int P, int tile) {
+  extern __shared__ uint32_t s[];
+  const int rows = blockDim.x * kItems;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * rows;
+  uint32_t* slots = s + static_cast<size_t>(P) * rows;
+  for (int p = 0; p < P; ++p)
+    for (int i = threadIdx.x; i < rows; i += blockDim.x)
+      s[p * rows + i] = base + i < n ? planes[p * n + base + i] : ~0u;
+  if (threadIdx.x == 0) slots[SlotOps::at(rows)] = 0;  // read, never used
+  __syncthreads();
+  uint32_t r[kItems];
+#pragma unroll
+  for (int e = 0; e < kItems; ++e) r[e] = threadIdx.x * kItems + e;
+  const SlotOps ops{s, slots, rows, P};
+  block_merge_sort(r, ops, tile);
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kItems; ++e) ops.put(threadIdx.x * kItems + e, r[e]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows && base + i < n; i += blockDim.x) {
+    const uint32_t from = ops.get(i);
+    for (int p = 0; p < P; ++p) planes[p * n + base + i] = s[p * rows + from];
+  }
+}
+
+// bitonic_u64: sorts every tile of n (hi, lo) uint32 pairs ascending as
+// unsigned 64-bit values, from the two input planes into the (2, n) buffer
+// `out` (plane 0 the high words).
+//
+// Replaces _bitonic_kernel (pallas_sort.py:45-88), which holds the whole
+// array in the TPU's fast memory and runs the bitonic network by rolling it.
+// Here the pairs are joined into 64-bit keys in registers and go through the
+// block merge sort above; the merge levels that finish a sort of more than
+// one tile are merge_partition and merge_tiles at two planes, launched by
+// the caller. Bytes bound it: 8 read and 8 written per pair.
+template <bool kVec>
+__global__ void __launch_bounds__(sort_max_threads(2))
+    bitonic_u64_kernel(const uint32_t* hi, const uint32_t* lo, uint32_t* out,
+                       int64_t n, int tile) {
+  extern __shared__ unsigned long long s64[];
+  const int rows = blockDim.x * kItems;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * rows +
+                       threadIdx.x * kItems;
+  unsigned long long r[kItems];
+  if (kVec) {
+#pragma unroll
+    for (int q = 0; q < kItems / 4; ++q) {
+      const uint4 none = make_uint4(~0u, ~0u, ~0u, ~0u);
+      const uint4 h =
+          base < n ? reinterpret_cast<const uint4*>(hi + base)[q] : none;
+      const uint4 l =
+          base < n ? reinterpret_cast<const uint4*>(lo + base)[q] : none;
+      r[4 * q] = static_cast<unsigned long long>(h.x) << 32 | l.x;
+      r[4 * q + 1] = static_cast<unsigned long long>(h.y) << 32 | l.y;
+      r[4 * q + 2] = static_cast<unsigned long long>(h.z) << 32 | l.z;
+      r[4 * q + 3] = static_cast<unsigned long long>(h.w) << 32 | l.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kItems; ++e)
+      r[e] = base + e < n ? static_cast<unsigned long long>(hi[base + e])
+                                    << 32 | lo[base + e]
+                          : ~0ull;
+  }
+  const U64Ops ops{s64};
+  block_merge_sort(r, ops, tile);
+  uint32_t* oh = out + base;
+  uint32_t* ol = out + n + base;
+  if (kVec) {
+    if (base < n) {
+#pragma unroll
+      for (int q = 0; q < kItems / 4; ++q) {
+        reinterpret_cast<uint4*>(oh)[q] = make_uint4(
+            static_cast<uint32_t>(r[4 * q] >> 32),
+            static_cast<uint32_t>(r[4 * q + 1] >> 32),
+            static_cast<uint32_t>(r[4 * q + 2] >> 32),
+            static_cast<uint32_t>(r[4 * q + 3] >> 32));
+        reinterpret_cast<uint4*>(ol)[q] = make_uint4(
+            static_cast<uint32_t>(r[4 * q]),
+            static_cast<uint32_t>(r[4 * q + 1]),
+            static_cast<uint32_t>(r[4 * q + 2]),
+            static_cast<uint32_t>(r[4 * q + 3]));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kItems; ++e)
+      if (base + e < n) {
+        oh[e] = static_cast<uint32_t>(r[e] >> 32);
+        ol[e] = static_cast<uint32_t>(r[e]);
+      }
+  }
+}
+
+// Launches a block merge sort kernel over n rows in tiles of `tile` rows:
+// tile / kItems threads per block (at least one warp, so a block of a
+// smaller tile sorts several tiles), `smem_of(rows of a block)` bytes of
+// shared memory. A tile that needs more threads than `max_threads` or more
+// shared memory than a block may have is refused.
+template <typename Kernel, typename SmemOf, typename... Args>
+int launch_block_sort(Kernel kernel, int max_threads, SmemOf smem_of,
+                      long long n, int tile, void* stream, Args... args) {
+  if (tile < 2 || (tile & (tile - 1)) || n < 1 || n % tile != 0 ||
+      tile / kItems > max_threads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = tile / kItems < 32 ? 32 : tile / kItems;
+  const long long rows = static_cast<long long>(threads) * kItems;
+  const long long smem = smem_of(static_cast<int>(rows));
+  if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>((n + rows - 1) / rows), threads,
+           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int P>
+int launch_tile_sort(void* planes, long long n, int tile, void* stream) {
+  auto smem_of = [](int rows) {
+    return static_cast<long long>(PlaneOps<P>::plane_words(rows)) * 4 * P;
+  };
+  uint32_t* x = static_cast<uint32_t*>(planes);
+  const int64_t n64 = n;
+  if (n % kItems == 0 && aligned16(planes))
+    return launch_block_sort(tile_sort_kernel<P, true>, sort_max_threads(P),
+                             smem_of, n, tile, stream, x, n64, tile);
+  return launch_block_sort(tile_sort_kernel<P, false>, sort_max_threads(P),
+                           smem_of, n, tile, stream, x, n64, tile);
 }
 
 // Rows of the first run among the first d merged rows of a pair of sorted
@@ -266,141 +629,35 @@ __global__ void merge_tiles_kernel(const uint32_t* src, uint32_t* dst,
   }
 }
 
-// bitonic_u64: the whole bitonic sort network over n (hi, lo) uint32 pairs
-// read as unsigned 64-bit values, ascending, in ONE launch.
-//
-// Replaces _bitonic_kernel (pallas_sort.py:45-88), which holds the whole
-// array in the TPU's fast memory and exchanges by rolling it. Here each
-// thread owns pairs i and i ^ j of a stage and compare-exchanges them. The
-// two planes are joined into one 64-bit key per pair in shared memory.
-//
-// What bounds it on an H100: bytes, 8 read and 8 written per pair, when
-// n <= 2^14 (128 KB of keys fit one block's 227 KB of shared memory; 2^15
-// do not): one block then runs every stage in shared memory. For larger n
-// the same launch is cooperative: every block sorts 2^14-pair tiles in
-// shared memory, and each further level K runs its stages j >= tile on
-// device memory (a grid barrier between stages, 16 B moved per pair and
-// stage) and its stages below the tile in shared memory again. A cluster
-// with distributed shared memory would keep more levels out of device
-// memory; that is left for later.
-constexpr int kU64TileLog2 = 14;
-
-__device__ __forceinline__ void u64_smem_stage(unsigned long long* s,
-                                               int tile, int j, int64_t big_k,
-                                               int64_t base) {
-  for (int t = threadIdx.x; t < tile / 2; t += blockDim.x) {
-    const int lo = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-    const int hi = lo + j;
-    const bool asc = ((base + lo) & big_k) == 0;
-    const unsigned long long a = s[lo];
-    const unsigned long long b = s[hi];
-    if (asc ? b < a : a < b) {
-      s[lo] = b;
-      s[hi] = a;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void u64_load_tile(unsigned long long* s,
-                                              const uint32_t* hi,
-                                              const uint32_t* lo,
-                                              int64_t base, int tile) {
-  for (int i = threadIdx.x; i < tile; i += blockDim.x)
-    s[i] = (static_cast<unsigned long long>(hi[base + i]) << 32) |
-           lo[base + i];
-  __syncthreads();
-}
-
-__device__ __forceinline__ void u64_store_tile(const unsigned long long* s,
-                                               uint32_t* hi, uint32_t* lo,
-                                               int64_t base, int tile) {
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    hi[base + i] = static_cast<uint32_t>(s[i] >> 32);
-    lo[base + i] = static_cast<uint32_t>(s[i]);
-  }
-  __syncthreads();  // the next tile's load overwrites s
-}
-
-__global__ void bitonic_u64_kernel(uint32_t* hi, uint32_t* lo, int64_t n,
-                                   int tile) {
-  extern __shared__ unsigned long long s64[];
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const int64_t n_tiles = n / tile;
-  // levels K = 2 .. tile: each tile alone, direction from the global index
-  for (int64_t tl = blockIdx.x; tl < n_tiles; tl += gridDim.x) {
-    const int64_t base = tl * tile;
-    u64_load_tile(s64, hi, lo, base, tile);
-    for (int big_k = 2; big_k <= tile; big_k <<= 1)
-      for (int j = big_k >> 1; j > 0; j >>= 1)
-        u64_smem_stage(s64, tile, j, big_k, base);
-    u64_store_tile(s64, hi, lo, base, tile);
-  }
-  const int64_t n_threads = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  for (int64_t big_k = 2 * static_cast<int64_t>(tile); big_k <= n;
-       big_k <<= 1) {
-    // stages that cross tiles: device memory, all blocks, a barrier each
-    for (int64_t j = big_k >> 1; j >= tile; j >>= 1) {
-      grid.sync();
-      for (int64_t t = tid; t < n / 2; t += n_threads) {
-        const int64_t a_i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int64_t b_i = a_i + j;
-        const bool asc = (a_i & big_k) == 0;
-        const uint32_t ah = hi[a_i], al = lo[a_i];
-        const uint32_t bh = hi[b_i], bl = lo[b_i];
-        const bool a_lt_b = ah < bh || (ah == bh && al < bl);
-        const bool b_lt_a = bh < ah || (ah == bh && bl < al);
-        if (asc ? b_lt_a : a_lt_b) {
-          hi[a_i] = bh;
-          lo[a_i] = bl;
-          hi[b_i] = ah;
-          lo[b_i] = al;
-        }
-      }
-    }
-    grid.sync();
-    // stages j = tile/2 .. 1 of this level, inside each tile
-    for (int64_t tl = blockIdx.x; tl < n_tiles; tl += gridDim.x) {
-      const int64_t base = tl * tile;
-      u64_load_tile(s64, hi, lo, base, tile);
-      for (int j = tile >> 1; j > 0; j >>= 1)
-        u64_smem_stage(s64, tile, j, big_k, base);
-      u64_store_tile(s64, hi, lo, base, tile);
-    }
-  }
-}
-
-int tile_threads(int tile) {
-  const int half = tile / 2;
-  return half < 1024 ? (half < 32 ? 32 : half) : 1024;
-}
-
-template <typename Kernel>
-int launch_tile(Kernel kernel, void* planes, long long n, int P, int tile,
-                void* stream) {
-  const long long smem = static_cast<long long>(tile) * P * 4;
-  if (tile < 2 || n % tile != 0 || smem > kMaxSmemBytes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(n / tile), tile_threads(tile),
-           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(planes), n, P, tile);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-// Full ascending sort of every tile of `tile` rows, in place.
+// Rows a thread of the sort kernels keeps in registers (the wrapper's
+// tile limits are computed from it).
+int limb_sort_items() { return kItems; }
+
+// Full ascending sort of every tile of `tile` rows, in place. The planes'
+// number picks the kernel: register rows for 1, 2, 3, 4, 5 and 9 planes,
+// sorted slots for any other number.
 int limb_tile_sort(void* planes, long long n, int P, int tile,
                    void* stream) {
-  return launch_tile(tile_sort_kernel, planes, n, P, tile, stream);
+  switch (P) {
+    case 1: return launch_tile_sort<1>(planes, n, tile, stream);
+    case 2: return launch_tile_sort<2>(planes, n, tile, stream);
+    case 3: return launch_tile_sort<3>(planes, n, tile, stream);
+    case 4: return launch_tile_sort<4>(planes, n, tile, stream);
+    case 5: return launch_tile_sort<5>(planes, n, tile, stream);
+    case 9: return launch_tile_sort<9>(planes, n, tile, stream);
+    default: break;
+  }
+  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto smem_of = [P](int rows) {
+    return (static_cast<long long>(rows) * P + SlotOps::slot_words(rows)) * 4;
+  };
+  return launch_block_sort(tile_sort_any_kernel, sort_max_threads(1), smem_of,
+                           n, tile, stream, static_cast<uint32_t*>(planes),
+                           static_cast<int64_t>(n), P, tile);
 }
 
 // The merge-path split array of one merge level (n / T + 1 entries).
@@ -446,41 +703,22 @@ int limb_merge_tiles(const void* src, void* dst, const void* split,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Full ascending sort of n (hi, lo) pairs as unsigned 64-bit values, in
-// place. One cooperative launch; the grid is the number of tiles, capped at
-// the number of blocks the card holds at once.
-int limb_bitonic_u64(void* hi, void* lo, long long n, void* stream) {
-  if (n < 2 || (n & (n - 1))) return static_cast<int>(cudaErrorInvalidValue);
-  int tile = n < (1LL << kU64TileLog2) ? static_cast<int>(n)
-                                       : (1 << kU64TileLog2);
-  const size_t smem = static_cast<size_t>(tile) * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      bitonic_u64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = tile_threads(tile);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, bitonic_u64_kernel, threads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  long long blocks = n / tile;
-  if (blocks > static_cast<long long>(per_sm) * sms)
-    blocks = static_cast<long long>(per_sm) * sms;
-  uint32_t* hi_p = static_cast<uint32_t*>(hi);
-  uint32_t* lo_p = static_cast<uint32_t*>(lo);
-  int64_t n64 = n;
-  void* args[] = {&hi_p, &lo_p, &n64, &tile};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(bitonic_u64_kernel),
-      dim3(static_cast<unsigned>(blocks)), dim3(threads), args, smem,
-      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+// Ascending sort of every tile of `tile` (hi, lo) pairs as unsigned 64-bit
+// values, from the planes hi and lo into the (2, n) buffer out.
+int limb_bitonic_u64(const void* hi, const void* lo, void* out, long long n,
+                     int tile, void* stream) {
+  auto smem_of = [](int rows) {
+    return static_cast<long long>(U64Ops::words(rows)) * 8;
+  };
+  const uint32_t* h = static_cast<const uint32_t*>(hi);
+  const uint32_t* l = static_cast<const uint32_t*>(lo);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  const int64_t n64 = n;
+  if (n % kItems == 0 && aligned16(hi) && aligned16(lo) && aligned16(out))
+    return launch_block_sort(bitonic_u64_kernel<true>, sort_max_threads(2),
+                             smem_of, n, tile, stream, h, l, o, n64, tile);
+  return launch_block_sort(bitonic_u64_kernel<false>, sort_max_threads(2),
+                           smem_of, n, tile, stream, h, l, o, n64, tile);
 }
 
 }  // extern "C"

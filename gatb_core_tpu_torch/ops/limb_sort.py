@@ -7,7 +7,10 @@ sorted tables are the hand-written CUDA kernels of ``csrc/limb_sort.cu``:
 
 - ``tile_sort`` (plain version ``tile_sort_plain``) replaces
   ``_tile_sort_kernel`` (pallas_sort.py:150, via ``_pallas_tile_sweep``):
-  the bitonic network of one tile, in shared memory;
+  every tile of rows sorted by one block. It is a merge sort, not the
+  TPU's bitonic network: each thread sorts a few rows in registers, then
+  the runs double inside the block by merge-path merges through shared
+  memory;
 - ``merge_partition`` (``merge_partition_plain``) replaces the cross-tile
   stages of ``_merge_sorted_runs`` (pallas_sort.py:204, jnp there): it cuts
   the merged output of every pair of runs into tiles by a binary search
@@ -17,14 +20,22 @@ sorted tables are the hand-written CUDA kernels of ``csrc/limb_sort.cu``:
   output tile in shared memory;
 - ``bitonic_u64`` (wrapper ``bitonic_sort_u64``, plain version
   ``bitonic_sort_u64_plain``) replaces ``_bitonic_kernel``
-  (pallas_sort.py:45, via ``bitonic_sort_u64`` :343): the whole network
-  over (hi, lo) pairs in one launch. Nothing on the counting path calls it,
-  as in the JAX package.
+  (pallas_sort.py:45, via ``bitonic_sort_u64`` :343): the same block merge
+  sort over (hi, lo) pairs joined into 64-bit keys; above one tile the
+  wrapper finishes with merge levels, so a sort is several launches where
+  the JAX package's is one ``pallas_call``. Nothing on the counting path
+  calls it, as in the JAX package.
 
 Planes are one (P, N) int32 tensor holding uint32 bit patterns, plane 0
 most significant; rows order as big-endian unsigned integers. N is a power
 of two. Invalid rows and padding must be all-ones in every plane (the
 sentinel), so they sort to the tail.
+
+The sort tile is not the largest that fits shared memory but the largest
+whose rows fit the registers of one block's threads (``sort_tile_max``):
+each halving of it costs one more merge level, a trip through device
+memory, which is more than the block sort's last round.
+``sort_tile_rows`` holds the choice per number of planes.
 
 The merge level is a merge-path merge, not the bitonic merge network of
 the JAX package (a network stage that crosses tiles is a trip of the whole
@@ -52,6 +63,14 @@ import functools
 import torch
 
 SMEM_BYTES = 232448           # shared memory one block may use on sm_90
+# tile_sort and bitonic_u64: rows a thread keeps in registers (SORT_ITEMS of
+# csrc/limb_sort.cu), the numbers of planes whose rows the kernel keeps in
+# registers (any other number sorts slots into shared memory) and the most
+# rows of a tile for those other numbers; pairs of a bitonic_u64 tile
+SORT_ITEMS = 16
+SORT_REGISTER_PLANES = (1, 2, 3, 4, 5, 9)
+SORT_TILE_ROWS_ANY = 2048
+U64_TILE_ROWS = 16384
 # merge_tiles: shared memory wanted per block, so that several blocks share
 # one SM, and output rows each thread merges serially
 MERGE_SMEM_BYTES = 32768
@@ -60,7 +79,7 @@ _BIAS = -(1 << 31)            # x ^ _BIAS orders int32 storage as uint32
 
 # kernel launches made through the wrappers (CUDA tensors only), and the
 # distinct argument shapes they launched with: (P, N, tile) for tile_sort,
-# (P, N, run, tile) for the two merge kernels, (N,) for bitonic_u64
+# (P, N, run, tile) for the two merge kernels, (N, tile) for bitonic_u64
 launches = {"tile_sort": 0, "merge_partition": 0, "merge_tiles": 0,
             "bitonic_u64": 0}
 launch_shapes: dict[str, set] = {name: set() for name in launches}
@@ -92,13 +111,60 @@ def _log2_exact(n: int, what: str) -> int:
     return n.bit_length() - 1
 
 
-def tile_log2_for(n_planes: int, n: int) -> int:
-    """Largest tile (log2) whose P planes fit one block's shared memory,
-    capped at the array size."""
-    t = 1
-    while (2 << t) * 4 * n_planes <= SMEM_BYTES:
-        t += 1
-    return min(t, n.bit_length() - 1)
+def sort_max_threads(words: int, items: int = SORT_ITEMS) -> int:
+    """Threads a block of the sort kernels may have when a row takes
+    ``words`` registers and a thread keeps ``items`` rows
+    (``sort_max_threads`` of csrc/limb_sort.cu): rows, the serial merge's
+    two heads, two rows of temporaries and about 24 registers of indexes
+    within the SM's 65,536."""
+    threads = 1024
+    while threads * (words * (items + 4) + 24) > 65536:
+        threads >>= 1
+    return threads
+
+
+def sort_smem_bytes(n_planes: int, tile: int,
+                    items: int = SORT_ITEMS) -> int:
+    """Shared memory of one ``tile_sort`` block: a block holds at least one
+    warp's rows; a plane takes a word per row, one more per 32 rows (so
+    that the threads' stores meet in no bank) and one at the end. For a
+    number of planes outside SORT_REGISTER_PLANES: the rows unpadded, and
+    one such plane of slots."""
+    rows = max(tile, 32 * items)
+    words = rows + rows // 32 + 1
+    if n_planes in SORT_REGISTER_PLANES:
+        return words * 4 * n_planes
+    return (rows * n_planes + words) * 4
+
+
+def sort_tile_max(n_planes: int, items: int = SORT_ITEMS) -> int:
+    """Rows of the largest tile ``tile_sort`` takes: ``items`` rows for
+    each thread the planes' registers allow, within one block's shared
+    memory."""
+    words = n_planes if n_planes in SORT_REGISTER_PLANES else 1
+    tile = items * sort_max_threads(words, items)
+    while tile > 2 and sort_smem_bytes(n_planes, tile, items) > SMEM_BYTES:
+        tile >>= 1
+    if sort_smem_bytes(n_planes, tile, items) > SMEM_BYTES:
+        raise ValueError(f"tile_sort: no tile of {n_planes} planes fits "
+                         "shared memory")
+    return tile
+
+
+def sort_tile_rows(n_planes: int) -> int:
+    """Rows of the tile ``sort_u32_limbs`` hands to ``tile_sort``. Halving
+    the tile adds one merge level (a trip of every row through device
+    memory, 0.22 ms on 2 x 2^25 rows of an H100) and takes away the block
+    sort's last round (0.15 ms there), and the block sort keeps its pace up
+    to the largest tile: so the tile is ``sort_tile_max`` where the rows
+    live in registers (2^14 rows for 1 and 2 planes, 2^13 for 3 to 5, 2^12
+    for 9). For any other number of planes it is at most
+    SORT_TILE_ROWS_ANY: the tile's rows lie in shared memory there, and
+    beyond 2^11 of them too few blocks share an SM. From
+    ``python -m gatb_core_tpu_torch.tools.sort_sweep``."""
+    if n_planes in SORT_REGISTER_PLANES:
+        return sort_tile_max(n_planes)
+    return min(SORT_TILE_ROWS_ANY, sort_tile_max(n_planes))
 
 
 def merge_smem_bytes(n_planes: int, tile: int) -> int:
@@ -126,22 +192,35 @@ def merge_tile_rows(n_planes: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (built at
-    the first launch, never at import)."""
+def load_library(items: int = SORT_ITEMS) -> ctypes.CDLL:
+    """The kernel library built for ``items`` rows per thread of the sort
+    kernels, with its C signatures declared. The wrappers use the default
+    build; another one is a variant for ``tools/sort_sweep.py``."""
     from ._build import load_cuda
 
-    lib = load_cuda("limb_sort")
+    lib = load_cuda("limb_sort", () if items == SORT_ITEMS
+                    else (f"SORT_ITEMS={items}",))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.limb_tile_sort.argtypes = [vp, ll, i, i, vp]
     lib.limb_merge_partition.argtypes = [vp, vp, ll, i, ll, ll, vp]
     lib.limb_merge_tiles.argtypes = [vp, vp, vp, ll, i, ll, i, i, vp]
-    lib.limb_bitonic_u64.argtypes = [vp, vp, ll, vp]
+    lib.limb_bitonic_u64.argtypes = [vp, vp, vp, ll, i, vp]
+    lib.limb_sort_items.argtypes = []
     for fn in (lib.limb_tile_sort, lib.limb_merge_partition,
-               lib.limb_merge_tiles, lib.limb_bitonic_u64):
+               lib.limb_merge_tiles, lib.limb_bitonic_u64,
+               lib.limb_sort_items):
         fn.restype = ctypes.c_int
+    if lib.limb_sort_items() != items:
+        raise RuntimeError(f"limb_sort: the library was not built for "
+                           f"{items} rows per thread")
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The wrappers' kernel library (built at the first launch, never at
+    import)."""
+    return load_library()
 
 
 def _check(rc: int, name: str) -> None:
@@ -170,10 +249,14 @@ def _check_tile(n: int, tile: int, what: str) -> None:
 
 
 def tile_sort(planes: torch.Tensor, tile: int) -> torch.Tensor:
-    """Sort every run of ``tile`` rows ascending, in place."""
+    """Sort every run of ``tile`` rows ascending, in place. ``tile`` is a
+    power of two up to ``sort_tile_max``."""
     x = as_planes(planes)
     P, n = x.shape
     _check_tile(n, tile, "tile_sort")
+    if tile > sort_tile_max(P):
+        raise ValueError(f"tile_sort: a tile of {tile} rows of {P} planes "
+                         "does not fit one block")
     if tile < 2:
         return x
     if not _route(x):
@@ -259,14 +342,20 @@ def merge_tiles(planes: torch.Tensor, run: int, split: torch.Tensor,
     return out
 
 
-def bitonic_sort_u64(hi: torch.Tensor, lo: torch.Tensor):
+def bitonic_sort_u64(hi: torch.Tensor, lo: torch.Tensor,
+                     tile_log2: int | None = None):
     """Sort flat (N,) uint32 (hi, lo) pairs (int32 storage) ascending as
     unsigned 64-bit values; all-ones pairs go to the tail. N must be a
-    power of two and a multiple of 128. Returns new (hi, lo) tensors.
+    power of two and a multiple of 128. The inputs are left as they are;
+    the result is a new (2, N) tensor, returned as its two planes.
 
-    On a CUDA tensor this is one launch of the ``bitonic_u64`` kernel (it
-    raises if the kernel cannot be built or launched); on a CPU tensor the
-    plain version."""
+    Tiles of U64_TILE_ROWS pairs (at most 2^tile_log2 where that is given,
+    at least 2) are sorted by the ``bitonic_u64`` kernel, one launch counted in
+    ``launches["bitonic_u64"]``; the run then doubles with one merge level
+    (``merge_partition`` + ``merge_tiles`` at two planes, counted under
+    their names) at a time, as in ``sort_u32_limbs``. The JAX package sorts
+    in one ``pallas_call``. On a CUDA tensor the kernels launch or raise;
+    on a CPU tensor the same composition runs over the plain versions."""
     if hi.shape != lo.shape or hi.dim() != 1:
         raise ValueError("bitonic_sort_u64: hi and lo must be flat and of "
                          "one size")
@@ -279,16 +368,21 @@ def bitonic_sort_u64(hi: torch.Tensor, lo: torch.Tensor):
         raise ValueError("bitonic_sort_u64: size must be a multiple of 128")
     if hi.device != lo.device:
         raise ValueError("bitonic_sort_u64: hi and lo on different devices")
-    if not _route(hi):
-        return bitonic_sort_u64_plain(hi, lo)
-    oh, ol = hi.contiguous().clone(), lo.contiguous().clone()
-    with torch.cuda.device(oh.device):
-        rc = _lib().limb_bitonic_u64(oh.data_ptr(), ol.data_ptr(), n,
-                                     _stream(oh))
-    _check(rc, "bitonic_u64")
-    launches["bitonic_u64"] += 1
-    launch_shapes["bitonic_u64"].add((n,))
-    return oh, ol
+    tile = min(U64_TILE_ROWS, n)
+    if tile_log2 is not None:
+        tile = min(tile, max(2, 1 << tile_log2))
+    if _route(hi):
+        hi, lo = hi.contiguous(), lo.contiguous()
+        x = torch.empty((2, n), dtype=torch.int32, device=hi.device)
+        with torch.cuda.device(x.device):
+            rc = _lib().limb_bitonic_u64(hi.data_ptr(), lo.data_ptr(),
+                                         x.data_ptr(), n, tile, _stream(x))
+        _check(rc, "bitonic_u64")
+        launches["bitonic_u64"] += 1
+        launch_shapes["bitonic_u64"].add((n, tile))
+    else:
+        x = tile_sort_plain(torch.stack([hi, lo]), tile)
+    return tuple(_merge_levels(x, tile, tile_log2))
 
 
 # ---------------------------------------------------------------------------
@@ -303,24 +397,12 @@ def _merge_tile(n_planes: int, run: int, tile_log2: int | None) -> int:
     return tile if tile_log2 is None else min(tile, 1 << tile_log2)
 
 
-def sort_u32_limbs(planes, tile_log2: int | None = None) -> torch.Tensor:
-    """Sort rows ascending by their big-endian lexicographic order
-    (== integer order of the concatenated value).
-
-    N must be a power of two. Tiles of 2^tile_log2 rows (default: the
-    largest that fits shared memory) are sorted by ``tile_sort``; the run
-    then doubles with one merge level (``merge_partition`` +
-    ``merge_tiles``) at a time, between the argument and one scratch tensor
-    of its size. Returns whichever of the two holds the sorted rows: take
-    the return value, the argument's contents are given up. A given
-    ``tile_log2`` also caps the merge levels' output tile.
-    """
-    x = as_planes(planes)
+def _merge_levels(x: torch.Tensor, run: int,
+                  tile_log2: int | None) -> torch.Tensor:
+    """Ascending runs of ``run`` rows -> the whole array ascending: one
+    merge level per doubling, between x and one scratch tensor of its
+    size. Returns whichever of the two holds the result."""
     P, n = x.shape
-    _log2_exact(n, "sort_u32_limbs")
-    t = tile_log2_for(P, n) if tile_log2 is None else tile_log2
-    run = min(1 << t, n)
-    tile_sort(x, run)
     other = None
     while run < n:
         tile = _merge_tile(P, run, tile_log2)
@@ -330,6 +412,29 @@ def sort_u32_limbs(planes, tile_log2: int | None = None) -> torch.Tensor:
         x, other = other, x
         run *= 2
     return x
+
+
+def sort_u32_limbs(planes, tile_log2: int | None = None) -> torch.Tensor:
+    """Sort rows ascending by their big-endian lexicographic order
+    (== integer order of the concatenated value).
+
+    N must be a power of two. Tiles of ``sort_tile_rows`` rows (at most
+    2^tile_log2 where that is given) are sorted by ``tile_sort``; the run
+    then doubles with one merge level (``merge_partition`` +
+    ``merge_tiles``) at a time, between the argument and one scratch tensor
+    of its size: 1 + 2 * (log2 N - log2 tile) launches. Returns whichever
+    of the two holds the sorted rows: take the return value, the argument's
+    contents are given up. A given ``tile_log2`` also caps the merge
+    levels' output tile.
+    """
+    x = as_planes(planes)
+    P, n = x.shape
+    _log2_exact(n, "sort_u32_limbs")
+    tile = min(sort_tile_rows(P), n)
+    if tile_log2 is not None:
+        tile = min(tile, 1 << tile_log2)
+    tile_sort(x, tile)
+    return _merge_levels(x, tile, tile_log2)
 
 
 def merge_sorted_runs(planes, run: int,

@@ -35,13 +35,24 @@ def _planes(w, n, seed, device):
     return x.to(device)
 
 
-@pytest.mark.parametrize("w,n", [(2, 1 << 12), (3, 1 << 17), (9, 1 << 16)])
+@pytest.mark.parametrize("w,n", [(2, 1 << 12), (3, 1 << 17), (9, 1 << 16),
+                                 (7, 1 << 15)])
 def test_kernels_match_plain(cuda, w, n):
+    """7 planes take tile_sort's path for any number of planes (sorted
+    slots), the others keep their rows in registers."""
     x = _planes(w, n, seed=n + w, device=cuda)
-    tile = 1 << S.tile_log2_for(w, n)
+    tile = min(S.sort_tile_rows(w), n)
     assert torch.equal(S.tile_sort(x.clone(), tile),
                        S.tile_sort_plain(x, tile))
     assert (w, n, tile) in S.launch_shapes["tile_sort"]
+    # every tile from 2 rows to the largest the kernel takes
+    t = 2
+    while t <= min(S.sort_tile_max(w), n):
+        assert torch.equal(S.tile_sort(x.clone(), t),
+                           S.tile_sort_plain(x, t)), t
+        t *= 2
+    with pytest.raises(ValueError):
+        S.tile_sort(x.clone(), 2 * S.sort_tile_max(w))
     # one merge level over ascending runs, at the default tile and a small one
     run = min(tile, n // 2)
     a = S.tile_sort_plain(x, run)
@@ -100,8 +111,10 @@ def test_count_on_card_matches_cpu(cuda):
     assert on_card.as_dict() == count_kmers_py(reads, 31, abundance_min=1)
 
 
-@pytest.mark.parametrize("n", [1 << 8, 1 << 14, 1 << 15, 1 << 19])
+@pytest.mark.parametrize("n", [1 << 7, 1 << 14, 1 << 15, 1 << 19])
 def test_bitonic_u64_matches_plain(cuda, n):
+    """Less than a tile, one tile, two tiles and many: one bitonic_u64
+    launch, then two launches per merge level."""
     g = torch.Generator().manual_seed(n)
     hi = torch.randint(-4, 4, (n,), dtype=torch.int32, generator=g)
     lo = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
@@ -109,12 +122,22 @@ def test_bitonic_u64_matches_plain(cuda, n):
     hi[::7] = -1                          # sentinel pairs
     lo[::7] = -1
     hi, lo = hi.to(cuda), lo.to(cuda)
-    before = S.launches["bitonic_u64"]
+    kept = hi.clone(), lo.clone()
+    before = dict(S.launches)
     oh, ol = S.bitonic_sort_u64(hi, lo)
     ph, pl = S.bitonic_sort_u64_plain(hi, lo)
     assert torch.equal(oh, ph) and torch.equal(ol, pl)
-    assert S.launches["bitonic_u64"] == before + 1
-    assert (n,) in S.launch_shapes["bitonic_u64"]
+    assert torch.equal(hi, kept[0]) and torch.equal(lo, kept[1])
+    tile = min(S.U64_TILE_ROWS, n)
+    levels = (n // tile).bit_length() - 1
+    assert S.launches["bitonic_u64"] == before["bitonic_u64"] + 1
+    assert S.launches["merge_partition"] == before["merge_partition"] + levels
+    assert S.launches["merge_tiles"] == before["merge_tiles"] + levels
+    assert S.launches["tile_sort"] == before["tile_sort"]
+    assert (n, tile) in S.launch_shapes["bitonic_u64"]
+    # a smaller tile: more merge levels, the same result
+    sh, sl = S.bitonic_sort_u64(hi, lo, tile_log2=5)
+    assert torch.equal(sh, ph) and torch.equal(sl, pl)
 
 
 def test_lsm_count_and_fetches_on_card_match_cpu(cuda):

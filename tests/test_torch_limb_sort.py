@@ -172,3 +172,78 @@ def test_merge_tile_rows_and_argument_checks():
         S.merge_tiles(x, 64, split[:-1].contiguous(), 32)
     with pytest.raises(TypeError):       # stop_j went with the network
         S.merge_sorted_runs(x, 64, stop_j=32)
+
+
+def _kind_planes(w, n, kind, seed):
+    """(w, n) uint32 rows: random, sorted, reversed, all equal, or random
+    with a tail of all-ones sentinel rows."""
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return np.full((w, n), 0x80000001, dtype=np.uint32)
+    x = rng.integers(0, 1 << 32, (w, n), dtype=np.uint64).astype(np.uint32)
+    x[:-1] &= np.uint32(0x80000003)      # ties in all but the last plane
+    if kind == "sentinel_tail":
+        x[:, n - n // 3:] = 0xFFFFFFFF
+    if kind in ("sorted", "reversed"):
+        x = x[:, np.lexsort(tuple(x[::-1]))]
+        if kind == "reversed":
+            x = x[:, ::-1].copy()
+    return x
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 9])
+@pytest.mark.parametrize("n", [256, 4096])
+@pytest.mark.parametrize("kind", ["random", "sorted", "reversed", "equal",
+                                  "sentinel_tail"])
+def test_sort_with_tile_cap_matches_lexsort(w, n, kind):
+    """``sort_u32_limbs`` at its own tile and with ``tile_log2`` as a cap
+    (tiles of 2, 8 and 64 rows, the rest merge levels) against a numpy
+    lexsort of the same rows. Integers: equality."""
+    x = _kind_planes(w, n, kind, seed=w * 7 + n)
+    exp = x[:, np.lexsort(tuple(x[::-1]))]
+    for tile_log2 in (1, 3, 6, None):
+        got = S.sort_u32_limbs(planes_to_torch(tuple(x)), tile_log2=tile_log2)
+        assert _eq(got, exp), tile_log2
+
+
+def test_sort_tile_rows_and_argument_checks():
+    """The tile chooser: the largest tile where the rows live in registers,
+    a smaller one for any other number of planes, always within what
+    ``tile_sort`` takes; a tile beyond that is rejected."""
+    for w, rows in ((1, 16384), (2, 16384), (3, 8192), (4, 8192), (5, 8192),
+                    (9, 4096)):
+        assert w in S.SORT_REGISTER_PLANES
+        assert S.sort_tile_rows(w) == S.sort_tile_max(w) == rows
+    for w, rows, most in ((6, 2048, 8192), (7, 2048, 4096), (64, 512, 512),
+                          (110, 512, 512)):
+        assert S.sort_tile_rows(w) == rows and S.sort_tile_max(w) == most
+    for w in (1, 2, 3, 4, 5, 6, 7, 9, 64, 110):
+        assert S.sort_smem_bytes(w, S.sort_tile_max(w)) <= S.SMEM_BYTES
+    with pytest.raises(ValueError):      # a warp's rows of 113 planes
+        S.sort_tile_max(113)
+    x = torch.zeros((9, 8192), dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not fit"):
+        S.tile_sort(x, 8192)             # 9 planes take 4096 rows at most
+    with pytest.raises(ValueError):
+        S.tile_sort(x, 48)               # not a power of two
+    assert torch.equal(S.tile_sort(x.clone(), 4096), x)
+    # a tile_log2 beyond the chooser's tile is a cap, not a demand
+    y = planes_to_torch(_planes(9, 8192, seed=2))
+    assert torch.equal(S.sort_u32_limbs(y.clone(), tile_log2=13),
+                       S.sort_u32_limbs_plain(y))
+
+
+@pytest.mark.parametrize("w,n,tile", [(1, 64, 2), (2, 192, 64), (7, 96, 32),
+                                      (3, 1024, 1024), (9, 6144, 2048)])
+def test_tile_sort_wrapper_matches_numpy(w, n, tile):
+    """``tile_sort`` on the CPU (the plain version, in place) against a
+    numpy lexsort of every tile, row counts that are no power of two
+    included."""
+    x = _kind_planes(w, n, "random", seed=n + tile)
+    exp = x.copy()
+    for s in range(0, n, tile):
+        order = np.lexsort(tuple(x[p, s:s + tile] for p in range(w - 1, -1, -1)))
+        exp[:, s:s + tile] = x[:, s:s + tile][:, order]
+    planes = planes_to_torch(tuple(x))
+    out = S.tile_sort(planes, tile)
+    assert out.data_ptr() == planes.data_ptr() and _eq(out, exp)
