@@ -17,7 +17,17 @@ against its plain PyTorch version, then counts k-mers through the port's
 public entry points on synthetic banks and checks every result against a
 numpy ground truth computed here:
 
-  1. kernels: tile_sort bit for bit against its plain version for 1, 2,
+  1. kernels: rank_rows (ops/rank_search) bit for bit against its plain
+     version for 1, 2, 3, 4, 5 and 8 limbs, tables of 0, 1, 2^10, 2^20 and
+     777,777 live rows under an all-ones padded tail, queries present,
+     absent, below the first row, above the last live row, equal to the
+     padding row and duplicated, no query at all, and a table whose storage
+     is off 16-byte alignment; its time at 8 x 2^20 queries on a 2^20-row
+     table (2 and 4 limbs) beside its plain version, torch.searchsorted on
+     int64 keys (2 limbs) and the co-sort of table and queries through
+     sort_u32_limbs (the JAX package's formulation), and the time of
+     neighbor_candidates for 2^20 nodes;
+     tile_sort bit for bit against its plain version for 1, 2,
      3, 4, 5 and 9 planes (rows in registers) and 7 (the kernel's path for
      any other number), at every tile from 2 rows to the largest it takes
      and on row counts that are no power of two, on random /
@@ -47,7 +57,7 @@ numpy ground truth computed here:
      generator of tools_dev/stress_r3.py:gen, ~0.9 GB of FASTA in a
      temporary directory), k=31, abundance-min 3: 29,999,950 solid k-mers;
   5. main-path shapes: every kernel bit for bit against its plain version
-     at each argument shape the count phases launched it with (run last);
+     at each argument shape the counted phases launched it with (run last);
   6. LSM merge chain (``carry_accumulator=False``): the bench bank in one
      pass and in three (bank cache on, and ``bank_cache_bytes=0``) and the
      stress bank in one pass, each solid table equal to the fold phase's;
@@ -59,11 +69,24 @@ numpy ground truth computed here:
      against its run on the CPU. (The ``.h5`` file is held by the CPU
      tests: h5py is not installed beside the card.)
   8. ``bitonic_sort_u64`` on 2^22 (hi, lo) pairs against ``np.sort``.
+  9. postsolid graph build (Bloom, debloom, adjacency, branching; MPHF
+     off): (a) ``Graph.create`` on the bench bank: adjacency masks,
+     branching count and checksum against a numpy lookup over uint64 k-mer
+     values; every cFP absent from the solid set, present in the Bloom and
+     a neighbour of a solid node; ``contains`` in both modes equal on all 8
+     candidates of every node; Bloom words, cFP set and T4 equal to a
+     second build on the CPU (the plain versions); (b) the same on a k=63
+     bank (4 limbs), the masks of 2^16 sampled nodes against Python
+     integers; (c) ``Graph(31, table).build_postsolid`` on the stress
+     count's solid table (29,999,950 nodes): stage times, peak device
+     memory, masks of 2^20 sampled nodes against numpy, then rank_rows
+     against its plain version on every sweep chunk's queries.
 
-Phases 2-4 and 6-8 each run with the kernels' launch counters set to 0
+Phases 2-4 and 6-9 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels in the counts;
-bitonic_u64 and the two merge kernels in phase 8). The stress counts also
+bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
+limb-sort kernels in each part of phase 9). The stress counts also
 log the peak of device memory allocated during the count.
 Exits non-zero on any failure (and at once without a CUDA device). The
 line before the last is the card's name and power limit as nvidia-smi
@@ -82,14 +105,25 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "gatb_core_tpu_torch/ops/csrc/limb_sort.cu"
+KERNEL_SOURCE = {
+    "tile_sort": "gatb_core_tpu_torch/ops/csrc/limb_sort.cu",
+    "merge_partition": "gatb_core_tpu_torch/ops/csrc/limb_sort.cu",
+    "merge_tiles": "gatb_core_tpu_torch/ops/csrc/limb_sort.cu",
+    "bitonic_u64": "gatb_core_tpu_torch/ops/csrc/limb_sort.cu",
+    "rank_rows": "gatb_core_tpu_torch/ops/csrc/rank_search.cu",
+}
+# rank_rows has no Pallas original: it replaces the jnp sort-join
 REPLACES = {
     "tile_sort": "gatb_core_tpu/ops/pallas_sort.py:150",
     "merge_partition": "gatb_core_tpu/ops/pallas_sort.py:204",
     "merge_tiles": "gatb_core_tpu/ops/pallas_sort.py:181",
     "bitonic_u64": "gatb_core_tpu/ops/pallas_sort.py:45",
+    "rank_rows": "gatb_core_tpu/ops/sortops.py:839",
 }
+LIMB_KERNELS = ("tile_sort", "merge_partition", "merge_tiles",
+                "bitonic_u64")
 SORT_KERNELS = ("tile_sort", "merge_partition", "merge_tiles")
+GRAPH_KERNELS = SORT_KERNELS + ("rank_rows",)
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
 # the float32 rate outside the tensor cores as the nearest published rate
 # for 32-bit compare work
@@ -229,21 +263,110 @@ def limbs_to_u64(kmers: np.ndarray) -> np.ndarray:
     return (k[:, 0] << np.uint64(32)) | k[:, 1]
 
 
+def revcomp_u64(v: np.ndarray, k: int) -> np.ndarray:
+    """Reverse complement of k-mers (k <= 32) held as uint64 values."""
+    u = np.uint64
+    x = v
+    for sh, m in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                  (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
+        x = ((x >> u(sh)) & u(m)) | ((x & u(m)) << u(sh))
+    x = (x >> u(32)) | (x << u(32))
+    return (x ^ u(0xAAAAAAAAAAAAAAAA)) >> u(64 - 2 * k)
+
+
+def neighbors_u64(nodes: np.ndarray, k: int) -> np.ndarray:
+    """(N, 8) uint64: the 8 canonical neighbour candidates of canonical
+    k-mers (k <= 31), 0-3 out by nucleotide, 4-7 in, as the reference
+    defines them (Graph.cpp getItems_visitor)."""
+    u = np.uint64
+    mask = u((1 << (2 * k)) - 1)
+    top = u(2 * k - 2)
+    f, r = nodes, revcomp_u64(nodes, k)
+    out = np.empty((len(nodes), 8), np.uint64)
+    for nt in range(4):
+        c, rc = u(nt), u(nt ^ 2)
+        out[:, nt] = np.minimum(((f << u(2)) | c) & mask,
+                                (r >> u(2)) | (rc << top))
+        out[:, 4 + nt] = np.minimum((f >> u(2)) | (c << top),
+                                    ((r << u(2)) | rc) & mask)
+    return out
+
+
+def member_u64(table: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Membership of uint64 values in a sorted uint64 table."""
+    pos = np.minimum(np.searchsorted(table, q), len(table) - 1)
+    return table[pos] == q
+
+
+def masks_of(found: np.ndarray) -> np.ndarray:
+    """(N, 8) bool -> (N,) uint8 adjacency masks."""
+    return (found.astype(np.uint8) << np.arange(8, dtype=np.uint8)).sum(
+        axis=1, dtype=np.uint8)
+
+
+def popcount4(x: np.ndarray) -> np.ndarray:
+    return ((x >> 0) & 1) + ((x >> 1) & 1) + ((x >> 2) & 1) + ((x >> 3) & 1)
+
+
+def branching_of(masks: np.ndarray) -> np.ndarray:
+    """Bool per node: out-degree or in-degree other than 1."""
+    return (popcount4(masks & 0x0F) != 1) | (popcount4(masks >> 4) != 1)
+
+
+def solid_neighbour_u64(nodes: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Bool per (N, 2) limb row (k = 31): one of its 8 neighbour candidates
+    is in the sorted uint64 table ``nodes``."""
+    cands = neighbors_u64(limbs_to_u64(rows), 31)
+    return member_u64(nodes, cands.ravel()).reshape(-1, 8).any(axis=1)
+
+
+def u64_to_limbs(v: np.ndarray) -> np.ndarray:
+    return np.stack([(v >> np.uint64(32)).astype(np.uint32),
+                     (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)], axis=1)
+
+
+_RC_BYTE = bytes(
+    sum((((b >> (2 * i)) & 3) ^ 2) << (6 - 2 * i) for i in range(4))
+    for b in range(256))
+
+
+def neighbors_py(v: int, k: int) -> list:
+    """The 8 canonical neighbour candidates of one k-mer as Python ints
+    (any k)."""
+    nbytes = (2 * k + 7) // 8
+    r = int.from_bytes(v.to_bytes(nbytes, "little").translate(_RC_BYTE),
+                       "big") >> (8 * nbytes - 2 * k)
+    mask = (1 << (2 * k)) - 1
+    top = 2 * k - 2
+    out = [min(((v << 2) | nt) & mask, (r >> 2) | ((nt ^ 2) << top))
+           for nt in range(4)]
+    return out + [min((v >> 2) | (nt << top), ((r << 2) | (nt ^ 2)) & mask)
+                  for nt in range(4)]
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 
 def build_all():
-    """nvcc (CUDA kernels), then g++ (native FASTA batcher)."""
+    """nvcc (one per CUDA source) and g++ (native FASTA batcher), all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from gatb_core_tpu_torch import native
     from gatb_core_tpu_torch.ops import _build
 
     t0 = time.time()
-    _build.load_cuda("limb_sort")
-    native_ok = native.available()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(_build.load_cuda, "limb_sort"),
+                pool.submit(_build.load_cuda, "rank_search"),
+                pool.submit(native.available)]
+        native_ok = [job.result() for job in jobs][2]
     log(f"build: {time.time() - t0:.2f} s wall "
         f"(nvcc limb_sort.cu {_build.build_seconds.get('limb_sort', 0):.2f}"
+        f" s, nvcc rank_search.cu "
+        f"{_build.build_seconds.get('rank_search', 0):.2f}"
         f" s, g++ fastx.cpp {_build.build_seconds.get('fastx', 0):.2f} s)"
         f"; parser: {'native' if native_ok else 'python'}"
         + ("" if native_ok else f" ({native.unavailable_reason})"))
@@ -302,7 +425,7 @@ def phase_kernels(torch, S):
     kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2024)
-    err = {name: 0 for name in REPLACES}
+    err = {name: 0 for name in LIMB_KERNELS}
     err_sort = 0
     n_checks = 0
     # tile_sort at every tile it takes: rows in registers for the planes of
@@ -606,6 +729,211 @@ def phase_timing(torch, S, card: str):
     return times, errs
 
 
+def sorted_table(torch, S, w: int, n: int, cap: int, gen):
+    """A sorted table of distinct random rows on the card: ((cap, w) int32
+    rows, live), the rows past ``live`` all-ones. ``live`` is n less the
+    few duplicates a random draw holds."""
+    table = torch.full((cap, w), -1, dtype=torch.int32, device="cuda")
+    if n == 0:
+        return table, 0
+    x = torch.randint(-2**31, 2**31 - 1, (w, n), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    x[0, ::7] &= 0xFFFF                   # rows below 2^31, and above it
+    x = S.sort_u32_limbs_plain(x)
+    keep = torch.ones((n,), dtype=torch.bool, device="cuda")
+    keep[1:] = (x[:, 1:] != x[:, :-1]).any(dim=0)
+    keep &= ~(x == -1).all(dim=0) & ~(x == 0).all(dim=0)
+    rows = x.T[keep]
+    table[:rows.shape[0]] = rows
+    return table, int(rows.shape[0])
+
+
+def rank_queries(torch, table, live: int, q: int, gen):
+    """q query rows in random order: half drawn from the live rows (so
+    some are duplicated), half random."""
+    w = table.shape[1]
+    out = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    if live and q:
+        pick = torch.randint(0, live, (q,), device="cuda", generator=gen)
+        hit = torch.rand((q,), device="cuda", generator=gen) < 0.5
+        out = torch.where(hit[:, None], table[pick], out)
+    return out.contiguous()
+
+
+def rank_err(R, table, queries, live: int) -> int:
+    """max |kernel - plain| over rank and found of one rank_rows call."""
+    rank, found = R.rank_rows(table, queries, live)
+    ref_rank, ref_found = R.rank_rows_plain(table, queries, live)
+    if queries.shape[0] == 0:
+        return int(rank.shape != ref_rank.shape
+                   or found.shape != ref_found.shape)
+    return max(max_abs_err(rank, ref_rank), max_abs_err(found, ref_found))
+
+
+def phase_rank_kernel(torch, S, R) -> int:
+    """rank_rows against rank_rows_plain on the card, bit for bit."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    err, n_checks = 0, 0
+    for w in (1, 2, 3, 4, 5, 8):
+        for n, cap in ((0, 4), (1, 1), (1, 8), (1 << 10, 1 << 10),
+                       (1 << 20, 1 << 20), (777_777, 1 << 20)):
+            table, live = sorted_table(torch, S, w, n, cap, gen)
+            edge = [torch.zeros((2, w), dtype=torch.int32, device="cuda"),
+                    torch.full((3, w), -1, dtype=torch.int32, device="cuda")]
+            if live:
+                last = table[live - 1:live].clone()
+                above = last.clone()
+                above[0, -1] += 1          # above the last live row (or,
+                below = table[:1].clone()  # on a wrap, far below it)
+                below[0, -1] -= 1
+                edge += [last, above, below, table[:1], table[:1],
+                         table[live // 2:live // 2 + 1]]
+            for q in (0, 1, 1 << 12, (1 << 18) + 3):
+                queries = torch.cat(
+                    [rank_queries(torch, table, live, q, gen)] + edge) \
+                    if q else torch.empty((0, w), dtype=torch.int32,
+                                          device="cuda")
+                err = max(err, rank_err(R, table, queries, live))
+                n_checks += 1
+            if live:
+                rank, found = R.rank_rows(table, table[:live].contiguous(),
+                                          live)
+                check(bool(found.all()) and bool(
+                    (rank == torch.arange(live, device="cuda")).all()),
+                    f"rank_rows: {w} limbs, the table's own rows")
+                rank, found = R.rank_rows(table, edge[1], live)
+                check(not bool(found.any()) and bool((rank == -1).all()),
+                      f"rank_rows: {w} limbs, the padding row was found")
+    # storage off 16-byte alignment: the wrapper hands the kernel a copy
+    for w in (2, 4):
+        table, live = sorted_table(torch, S, w, 1 << 12, 1 << 12, gen)
+        flat = torch.empty(table.numel() + 1, dtype=torch.int32,
+                           device="cuda")
+        shifted = flat[1:].view_as(table)
+        shifted.copy_(table)
+        queries = rank_queries(torch, table, live, 1 << 12, gen)
+        err = max(err, rank_err(R, shifted, queries, live))
+        n_checks += 1
+    R.reset_launches()
+    torch.cuda.synchronize()
+    log(f"phase 1 rank_rows: {n_checks} inputs, max |kernel - plain| {err}")
+    check(err == 0, "rank_rows disagrees with its plain version")
+    return err
+
+
+def rank_cosort(torch, S, table, queries, n_table: int):
+    """The JAX package's formulation of the rank (sortops.py:852-884)
+    carried over to the port's sort kernels: co-sort table and queries with
+    a tag plane (live table row 0 < query 1 < padding 2), read each
+    query's rank off a running count of live table rows, and restore the
+    query order with a second sort. (The JAX version finds each run's start
+    with two ``cummax`` scans; two ``torch.cummax`` calls took 89 of 97 ms
+    on 2^24 rows of an H100, so this one gathers the count at the run's
+    start instead.)"""
+    c, w = table.shape
+    q = queries.shape[0]
+    n = c + q
+    cap = 1 << (n - 1).bit_length()
+    dev = table.device
+    planes = torch.full((w + 2, cap), -1, dtype=torch.int32, device=dev)
+    planes[:w, :c] = table.T
+    planes[:w, c:n] = queries.T
+    planes[w] = 2
+    planes[w, :n_table] = 0
+    planes[w, c:n] = 1
+    planes[w + 1, c:n] = torch.arange(q, dtype=torch.int32, device=dev)
+    out = S.sort_u32_limbs(planes)
+    kp, stag, sorig = out[:w], out[w], out[w + 1]
+    is_table = stag == 0
+    ct = torch.cumsum(is_table, dim=0, dtype=torch.int32)
+    starts = torch.ones((cap,), dtype=torch.bool, device=dev)
+    starts[1:] = (kp[:, 1:] != kp[:, :-1]).any(dim=0)
+    # live table rows before each equal-key run; a run that holds one holds
+    # it first, so a query is found iff the count has moved since the start
+    before = (ct - is_table.to(torch.int32))[starts]
+    run = torch.cumsum(starts, dim=0) - 1
+    found = ct > before[run]
+    none = torch.full_like(ct, -1)
+    rank = torch.where(found, ct - 1, none)
+    key2 = torch.where(stag == 1, sorig, none)
+    out2 = S.sort_u32_limbs(torch.stack([key2, rank,
+                                         found.to(torch.int32)]))
+    return out2[1, :q], out2[2, :q] != 0
+
+
+def phase_rank_timing(torch, S, R, card: str):
+    """rank_rows at 8 x 2^20 queries (half present, half random, in random
+    order) on a table of 2^20 rows, 2 and 4 limbs: the kernel, its plain
+    version, the co-sort through sort_u32_limbs and, for 2 limbs,
+    torch.searchsorted on the rows joined into int64 keys (the join made
+    before the clock; it gives the lower bound only, so it is the least a
+    version made of that call could take). The bound counts the queries
+    read once, the live table read once and 5 bytes written per query.
+    Returns ({ms, plain_ms, library_ms, bound_ms, bound_by, ...} of the
+    2-limb shape with the 4-limb and co-sort times beside, max |kernel -
+    plain|)."""
+    from gatb_core_tpu_torch.ops.neighbor_ops import neighbor_candidates
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    top = torch.iinfo(torch.int64).min
+    q = 8 << 20
+    res, err = {}, 0
+    for w in (2, 4):
+        table, live = sorted_table(torch, S, w, 1 << 20, 1 << 20, gen)
+        queries = rank_queries(torch, table, live, q, gen)
+        ms, out = time_ms(torch, lambda y: R.rank_rows(table, y, live),
+                          queries, fresh=False)
+        plain_ms, ref = time_ms(
+            torch, lambda y: R.rank_rows_plain(table, y, live), queries,
+            fresh=False)
+        co_ms, co = time_ms(
+            torch, lambda y: rank_cosort(torch, S, table, y, live), queries,
+            fresh=False)
+        e = max(max_abs_err(out[0], ref[0]), max_abs_err(out[1], ref[1]),
+                max_abs_err(out[0], co[0]), max_abs_err(out[1], co[1]))
+        lib_ms = None
+        if w == 2:
+            def keys_of(x):
+                return (((x[:, 0].long() & 0xFFFFFFFF) << 32)
+                        | (x[:, 1].long() & 0xFFFFFFFF)) ^ top
+
+            tkeys, qkeys = keys_of(table[:live]), keys_of(queries)
+            lib_ms, lb = time_ms(
+                torch, lambda y: torch.searchsorted(tkeys, y), qkeys,
+                fresh=False)
+            e = max(e, int((lb[out[1]] != out[0][out[1]]).sum()))
+            del tkeys, qkeys, lb
+        nc_ms, _ = time_ms(
+            torch, lambda y: neighbor_candidates(y, 16 * w - 1),
+            table[:live].contiguous(), fresh=False)
+        b_ms, b_by = bound(q * w * 4 + live * w * 4 + q * 5,
+                           q * (live.bit_length() + 1))
+        log(f"time rank_rows: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"co-sort through sort_u32_limbs {co_ms:.4f} ms, library "
+            f"(torch.searchsorted of int64 keys) "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms by {b_by} ({q} queries of {w} limbs on {live} "
+            f"rows; {card}); neighbor_candidates of {live} nodes "
+            f"{nc_ms:.4f} ms; max |kernel - plain|, |kernel - co-sort| {e}")
+        res[w] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "cosort_ms": co_ms,
+                  "neighbor_candidates_ms": nc_ms}
+        err = max(err, e)
+        del table, queries, out, ref, co
+    torch.cuda.empty_cache()
+    check(err == 0, "timing: rank_rows disagrees with its plain version, "
+          "the co-sort or torch.searchsorted")
+    times = dict(res[2])
+    times["ms_4_limbs"] = res[4]["ms"]
+    times["plain_ms_4_limbs"] = res[4]["plain_ms"]
+    times["bound_ms_4_limbs"] = res[4]["bound_ms"]
+    times["cosort_ms_4_limbs"] = res[4]["cosort_ms"]
+    return times, err
+
+
 def phase_fetch(torch, card: str):
     """The fetch of a 30M-row k=31 table (the stress count's: 2 limb
     planes at capacity 2^25, 29,999,963 live rows) from the card, three
@@ -653,7 +981,7 @@ def phase_fetch(torch, card: str):
     return secs
 
 
-def phase_shapes(torch, S, shapes: dict) -> dict:
+def phase_shapes(torch, S, R, shapes: dict) -> dict:
     """Every kernel against its plain version at each argument shape the
     count phases launched it with, on random and on heavy-duplicate
     inputs. Returns max |kernel - plain| per kernel."""
@@ -661,6 +989,21 @@ def phase_shapes(torch, S, shapes: dict) -> dict:
     gen.manual_seed(31)
     err = {name: 0 for name in REPLACES}
     n_checks = 0
+    # rank_rows: a sorted table of the launch's live rows under its padded
+    # tail; queries half present, half random
+    tables = {}
+    for w, cap, n_table, q in sorted(shapes["rank_rows"]):
+        if (w, cap, n_table) not in tables:
+            tables.clear()              # one table alive at a time
+            tables[(w, cap, n_table)] = sorted_table(torch, S, w, n_table,
+                                                     cap, gen)
+        table, live = tables[(w, cap, n_table)]
+        queries = rank_queries(torch, table, live, q, gen)
+        err["rank_rows"] = max(err["rank_rows"],
+                               rank_err(R, table, queries, live))
+        n_checks += 1
+        del queries
+    tables.clear()
     for P, n, tile in sorted(shapes["tile_sort"]):
         for kind in ("random", "duplicates"):
             x = kernel_inputs(P, n, kind, gen, torch)
@@ -698,13 +1041,17 @@ def phase_shapes(torch, S, shapes: dict) -> dict:
 
 
 def counted(S, name: str, fn, path=SORT_KERNELS):
-    """Run fn with the launch counters at 0; require every kernel of its
-    path to have launched. Returns fn's result, the launch counts and the
-    launch shapes."""
+    """Run fn with the launch counters (the limb-sort wrappers' and the
+    rank search's) at 0; require every kernel of its path to have launched.
+    Returns fn's result, the launch counts and the launch shapes."""
+    from gatb_core_tpu_torch.ops import rank_search as R
+
     S.reset_launches()
+    R.reset_launches()
     out = fn()
-    got = dict(S.launches)
-    shapes = {k: set(v) for k, v in S.launch_shapes.items()}
+    got = {**S.launches, **R.launches}
+    shapes = {k: set(v) for k, v in
+              {**S.launch_shapes, **R.launch_shapes}.items()}
     log(f"{name} launches: {got}")
     check(all(got[k] > 0 for k in path),
           f"{name}: a kernel of the path was not launched")
@@ -776,7 +1123,7 @@ def phase_k63(tally, tmp: str, S, count_kmers):
     check(np.array_equal(res.solid_kmers, rows)
           and np.array_equal(res.solid_counts, cnts),
           "k=63: table differs from the numpy ground truth")
-    os.remove(path)
+    return path
 
 
 def stress_count(tally, S, count_kmers, path: str, name: str, card: str,
@@ -964,6 +1311,302 @@ def phase_bitonic(tally, S, torch, truth):
         f"sentinels) equal to np.sort")
 
 
+def check_debloom(name: str, graph, k: int, cands_limbs: np.ndarray,
+                  member: np.ndarray, is_candidate) -> None:
+    """What every debloom result must satisfy. ``cands_limbs`` are the 8
+    candidates of every node ((8N, W) uint32) and ``member`` their exact
+    membership from the ground truth; ``is_candidate`` says of cFP rows
+    whether each is a neighbour of a solid node (adjacency is symmetric:
+    it is one iff one of its own 8 candidates is solid)."""
+    from gatb_core_tpu_torch.kmer.debloom import rows_to_device
+
+    deb = graph._debloom
+    check(deb is not None and deb.nb_cfp == len(deb.cfp)
+          == graph.get_info()["nb_cfp"], f"{name}: no debloom result")
+    exact = graph.contains(cands_limbs, mode="exact")
+    check(np.array_equal(exact, member),
+          f"{name}: contains(exact) differs from the ground truth")
+    check(np.array_equal(graph.contains(cands_limbs, mode="bloom_cfp"),
+                         exact),
+          f"{name}: contains(bloom_cfp) differs from contains(exact)")
+    if deb.nb_cfp:
+        check(not graph.contains(deb.cfp).any(),
+              f"{name}: a cFP is a solid k-mer")
+        in_bloom = deb.bloom.contains(rows_to_device(deb.cfp, "cuda"))
+        check(bool(in_bloom.all()), f"{name}: a cFP is not in the Bloom")
+        check(bool(np.all(is_candidate(deb.cfp))),
+              f"{name}: a cFP is no neighbour of a solid node")
+        a, b = deb.cfp[:-1], deb.cfp[1:]
+        first = (a != b).argmax(axis=1)[:, None]
+        check(bool(np.all(np.take_along_axis(a, first, 1)
+                          < np.take_along_axis(b, first, 1))),
+              f"{name}: the cFP set is not sorted and distinct")
+
+
+def check_cpu_rebuild(name: str, graph, k: int) -> float:
+    """Bloom words, cFP set and T4 of the graph's debloom stage equal to a
+    second build of the same table on the CPU (the plain versions)."""
+    from gatb_core_tpu_torch.kmer.debloom import build_debloom
+
+    deb = graph._debloom
+    t0 = time.time()
+    ref = build_debloom(graph.solid_limbs, k, cascading=True,
+                        bloom_kind="neighbor", device="cpu")
+    secs = time.time() - t0
+    check(np.array_equal(ref.bloom.to_numpy(), deb.bloom.to_numpy())
+          and np.array_equal(ref.cfp, deb.cfp) and ref.kind == deb.kind
+          and ref.info == deb.info,
+          f"{name}: Bloom or cFP set differ from the CPU build")
+    if deb.cascade is not None:
+        check(np.array_equal(ref.cascade.t4, deb.cascade.t4) and all(
+            np.array_equal(a.to_numpy(), b.to_numpy())
+            and a.size_bits == b.size_bits and a.n_hash == b.n_hash
+            for a, b in zip(ref.cascade.blooms, deb.cascade.blooms)),
+            f"{name}: the cascade differs from the CPU build")
+    return secs
+
+
+def stage_times(info: dict) -> dict:
+    return {key: info[key] for key in sorted(info)
+            if key.startswith("postsolid_time")}
+
+
+def phase_postsolid_bench(tally, S, bench_path: str, truth, card: str):
+    """Phase 9a: the bench bank's graph, default postsolid stages bar the
+    MPHF, against numpy over uint64 k-mer values."""
+    import torch
+
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+
+    vals, cnts = truth
+    nodes = vals[cnts >= 3]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    graph, got = tally.counted(S, "phase 9a bench graph", lambda: Graph.create(
+        bank=bench_path, kmer_size=31, abundance_min=3, output=None,
+        bloom_kind="neighbor", debloom_kind="cascading", mphf_kind="none",
+        build_branching=True, superbatch_rows=1 << 22), path=GRAPH_KERNELS)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    info = graph.get_info()
+    check(np.array_equal(limbs_to_u64(graph.solid_limbs), nodes),
+          "9a: the graph's table differs from numpy")
+    cands = neighbors_u64(nodes, 31)
+    member = member_u64(nodes, cands.ravel())
+    masks = masks_of(member.reshape(-1, 8))
+    check(np.array_equal(graph._adjacency, masks),
+          "9a: adjacency masks differ from the numpy lookup")
+    check(np.array_equal(graph.adjacency_masks(graph.solid_limbs[:4096]),
+                         masks[:4096])
+          and np.array_equal(graph.node_index(graph.solid_limbs[-4096:]),
+                             np.arange(len(nodes) - 4096, len(nodes))),
+          "9a: adjacency_masks or node_index differ from numpy")
+    br = branching_of(masks)
+    total = int(nodes[br].sum(dtype=np.uint64))
+    check(np.array_equal(limbs_to_u64(graph.branching_nodes()), nodes[br])
+          and info["nb_branching"] == int(br.sum())
+          and info["checksum_branching"] == (f"{total:x}" if total else ""),
+          "9a: branching nodes or checksum differ from numpy")
+    check_debloom("9a", graph, 31, u64_to_limbs(cands.ravel()), member,
+                  lambda cfp: solid_neighbour_u64(nodes, cfp))
+    cpu_s = check_cpu_rebuild("9a", graph, 31)
+    log(f"phase 9a bench graph: {wall:.3f} s wall with the count, "
+        f"{graph.nb_nodes} nodes, stages {stage_times(info)}, nb_cfp "
+        f"{info['nb_cfp']} ({info['debloom_kind']}), Bloom "
+        f"{info['bloom_size_bits']} bits x {info['bloom_nb_hash']} hashes, "
+        f"branching {info['nb_branching']}, checksum "
+        f"{info['checksum_branching']}, peak device memory {peak:.1f} MiB; "
+        f"{card}; the same debloom stage on the CPU {cpu_s:.3f} s; masks, "
+        f"branching, cFP and both membership modes equal to numpy")
+    return got
+
+
+def phase_postsolid_k63(tally, S, k63_path: str, card: str):
+    """Phase 9b: a 4-limb graph (k=63, abundance-min 2), the masks of 2^16
+    sampled nodes against Python integers and the rest against them."""
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+    from gatb_core_tpu_torch.ops.kmer_ops import kmers_to_py, py_to_limbs
+    from gatb_core_tpu_torch.ops.neighbor_ops import neighbor_candidates
+
+    k = 63
+    t0 = time.time()
+    graph, got = tally.counted(S, "phase 9b k=63 graph", lambda: Graph.create(
+        bank=k63_path, kmer_size=k, abundance_min=2, output=None,
+        bloom_kind="neighbor", debloom_kind="cascading", mphf_kind="none",
+        build_branching=True), path=GRAPH_KERNELS)
+    wall = time.time() - t0
+    info = graph.get_info()
+    n = graph.nb_nodes
+    check(graph.solid_limbs.shape == (n, 4) and n > 1 << 16,
+          "9b: four limbs and a table worth the name")
+    values = kmers_to_py(graph.solid_limbs)
+    solid = set(values)
+    pick = np.sort(np.random.default_rng(63).choice(n, 1 << 16,
+                                                    replace=False))
+    sample = [neighbors_py(values[i], k) for i in pick]
+    masks = np.array([sum(1 << j for j, c in enumerate(row) if c in solid)
+                      for row in sample], np.uint8)
+    check(np.array_equal(graph._adjacency[pick], masks),
+          "9b: adjacency masks differ from the Python-integer lookup")
+    flat = py_to_limbs([c for row in sample for c in row], k)
+    cands = neighbor_candidates(graph._padded_table(), k).cpu().numpy() \
+        .astype(np.uint32).reshape(-1, 4)
+    rows = cands.reshape(n, 8, 4)[pick].reshape(-1, 4)
+    check(np.array_equal(rows, flat),
+          "9b: neighbor_candidates differ from Python integers")
+    br = branching_of(graph._adjacency)
+    total = sum(v for v, b in zip(values, br) if b) % (1 << 128)
+    words = [f"{(total >> 64) & (2**64 - 1):x}", f"{total & (2**64 - 1):x}"]
+    checksum = ".".join(words if total >> 64 else words[1:]) if total else ""
+    check(np.array_equal(graph.branching_nodes(), graph.solid_limbs[br])
+          and info["nb_branching"] == int(br.sum())
+          and info["checksum_branching"] == checksum,
+          "9b: branching nodes or checksum differ")
+    member = np.fromiter((c in solid for row in sample for c in row), bool,
+                         8 * len(sample))
+    check(np.array_equal(graph.contains(flat), member),
+          "9b: contains(exact) differs from the Python set")
+    # all candidates: exact membership through the masks held above
+    every = (graph._adjacency[:, None] >> np.arange(8, dtype=np.uint8)) & 1
+
+    def is_candidate(cfp):
+        return [any(c in solid for c in neighbors_py(v, k))
+                for v in kmers_to_py(cfp)]
+
+    check_debloom("9b", graph, k, cands, every.ravel().astype(bool),
+                  is_candidate)
+    cpu_s = check_cpu_rebuild("9b", graph, k)
+    log(f"phase 9b k=63 graph: {wall:.3f} s wall with the count, {n} nodes, "
+        f"stages {stage_times(info)}, nb_cfp {info['nb_cfp']} "
+        f"({info['debloom_kind']}), branching {info['nb_branching']}; "
+        f"{card}; the same debloom stage on the CPU {cpu_s:.3f} s; masks of "
+        f"2^16 nodes equal to Python integers, cFP and both membership "
+        f"modes consistent on all {8 * n} candidates")
+    return got
+
+
+def postsolid_breakdown(torch, R, graph, nodes, card: str) -> None:
+    """Where one sweep step of the stress postsolid build spends its time
+    (CUDA events, median after warm-up): the Bloom build over the whole
+    table, then for one chunk of ``nodes`` the candidates, the Bloom
+    probe, the rank search and the dedup of the hits, and the adjacency
+    step as a whole."""
+    from gatb_core_tpu_torch.collections.bloom import _bloom_build
+    from gatb_core_tpu_torch.debruijn.graph import _adjacency_kernel
+    from gatb_core_tpu_torch.kmer.debloom import _dedup_rows
+    from gatb_core_tpu_torch.ops.neighbor_ops import neighbor_candidates
+    from gatb_core_tpu_torch.ops.rank_search import as_rows
+
+    table, n = graph._padded_table(), graph.nb_nodes
+    b = graph._debloom.bloom
+    build_ms, words = time_ms(
+        torch, lambda t: _bloom_build(t, None, b.size_bits, b.n_hash,
+                                      b.user_seed, b.kind, b.kmer_size),
+        table, warm=1, reps=3, fresh=False)
+    check(bool((words == b.words).all()), "9c: the Bloom build is not stable")
+    cand_ms, cands = time_ms(torch, lambda t: neighbor_candidates(t, 31),
+                             nodes, warm=1, reps=3, fresh=False)
+    flat = cands.reshape(-1, cands.shape[-1])
+    probe_ms, in_bloom = time_ms(torch, b.contains, flat, warm=1, reps=3,
+                                 fresh=False)
+    rows = as_rows(flat)
+    rank_ms, (_, solid) = time_ms(torch, lambda q: R.rank_rows(table, q, n),
+                                  rows, warm=1, reps=3, fresh=False)
+    hit = in_bloom & ~solid
+    dedup_ms, _ = time_ms(torch, lambda q: _dedup_rows(q, hit, len(q) // 8),
+                          rows, warm=1, reps=3, fresh=False)
+    adj_ms, _ = time_ms(torch, lambda t: _adjacency_kernel(t, table, 31, n),
+                        nodes, warm=1, reps=3, fresh=False)
+    log(f"phase 9c breakdown: Bloom build over {n} nodes ({b.size_bits} "
+        f"bits, {b.n_hash} hashes, kind {b.kind}) {build_ms:.3f} ms; one "
+        f"sweep step of {len(nodes)} nodes: neighbor_candidates "
+        f"{cand_ms:.3f} ms, Bloom probe of {len(flat)} candidates "
+        f"{probe_ms:.3f} ms, rank_rows {rank_ms:.3f} ms, dedup of "
+        f"{int(hit.sum())} hits (sort + reduce) {dedup_ms:.3f} ms; one "
+        f"adjacency step (candidates + rank_rows + pack) {adj_ms:.3f} ms; "
+        f"{card}")
+
+
+def phase_postsolid_stress(tally, S, R, stress_fold, card: str):
+    """Phase 9c: the postsolid stages on the stress count's solid table,
+    then rank_rows against its plain version on every sweep chunk's
+    queries (after the launch counts are read)."""
+    import torch
+
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+    from gatb_core_tpu_torch.ops.neighbor_ops import neighbor_candidates
+    from gatb_core_tpu_torch.ops.rank_search import as_rows
+    from gatb_core_tpu_torch.ops.sortops import sweep_chunk
+
+    nodes = limbs_to_u64(stress_fold.solid_kmers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**20
+
+    def build():
+        graph = Graph(31, stress_fold.solid_kmers, stress_fold.solid_counts)
+        init_s.append(time.time() - t0)
+        graph.build_postsolid(mphf_kind="none")
+        torch.cuda.synchronize()
+        return graph
+
+    init_s = []
+    t0 = time.time()
+    graph, got = tally.counted(S, "phase 9c stress graph", build,
+                               path=GRAPH_KERNELS)
+    wall = time.time() - t0
+    check(got["rank_rows"] == 2 * -(-29_999_950 // sweep_chunk(29_999_950)),
+          "9c: rank_rows is not one launch per sweep chunk and stage")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    info = graph.get_info()
+    n = graph.nb_nodes
+    check(n == 29_999_950, "9c: nodes")
+    pick = np.sort(np.random.default_rng(9).choice(n, 1 << 20,
+                                                   replace=False))
+    cands = neighbors_u64(nodes[pick], 31)
+    member = member_u64(nodes, cands.ravel())
+    masks = masks_of(member.reshape(-1, 8))
+    check(np.array_equal(graph._adjacency[pick], masks),
+          "9c: adjacency masks differ from the numpy lookup")
+    br = branching_of(graph._adjacency)
+    total = int(nodes[br].sum(dtype=np.uint64))
+    check(info["nb_branching"] == int(br.sum())
+          and info["checksum_branching"] == (f"{total:x}" if total else "")
+          and np.array_equal(limbs_to_u64(graph.branching_nodes()),
+                             nodes[br]),
+          "9c: branching nodes or checksum differ")
+    every = neighbor_candidates(
+        graph._padded_table()[torch.from_numpy(pick).cuda()], 31).cpu() \
+        .numpy().astype(np.uint32).reshape(-1, 2)
+    check(np.array_equal(limbs_to_u64(every), cands.ravel()),
+          "9c: neighbor_candidates differ from numpy")
+    check_debloom("9c", graph, 31, every, member,
+                  lambda cfp: solid_neighbour_u64(nodes, cfp[::16]))
+    log(f"phase 9c stress graph: {wall:.3f} s wall ({init_s[0]:.3f} s of it "
+        f"Graph(): the table's upload and the abundance codes), {n} nodes, "
+        f"stages {stage_times(info)}, nb_cfp {info['nb_cfp']} "
+        f"({info['debloom_kind']}), Bloom {info['bloom_size_bits']} bits x "
+        f"{info['bloom_nb_hash']} hashes, branching {info['nb_branching']}, "
+        f"peak device memory {peak:.1f} MiB ({base:.1f} MiB before); {card};"
+        f" masks of 2^20 nodes, branching and both membership modes equal "
+        f"to numpy")
+    table = graph._padded_table()
+    step = sweep_chunk(n)
+    postsolid_breakdown(torch, R, graph, table[:step], card)
+    # every chunk's queries: the kernel against its plain version
+    err, chunks = 0, 0
+    for i in range(0, n, step):
+        q = as_rows(neighbor_candidates(table[i:i + step], 31)
+                    .reshape(-1, 2))
+        err = max(err, rank_err(R, table, q, n))
+        chunks += 1
+        del q
+    log(f"phase 9c: rank_rows against its plain version on {chunks} chunks "
+        f"of up to {8 * step} queries: max |kernel - plain| {err}")
+    check(err == 0, "9c: rank_rows disagrees with its plain version")
+    return got, err
+
+
 def device_events(torch, prof):
     """(name, self device microseconds, calls) of every device-side event
     (kernels and copies) of a profile, longest first."""
@@ -1054,6 +1697,7 @@ def main() -> int:
     try:
         from gatb_core_tpu_torch import count_kmers
         from gatb_core_tpu_torch.ops import limb_sort as S
+        from gatb_core_tpu_torch.ops import rank_search as R
     except ImportError as e:
         print(f"chip_smoke: the gatb_core_tpu_torch package is missing "
               f"({e})", file=sys.stderr)
@@ -1068,29 +1712,39 @@ def main() -> int:
     t_all = time.time()
     build_all()
     err = phase_kernels(torch, S)
+    err["rank_rows"] = phase_rank_kernel(torch, S, R)
     times, err_t = phase_timing(torch, S, card)
+    times["rank_rows"], err_t["rank_rows"] = phase_rank_timing(torch, S, R,
+                                                               card)
     phase_fetch(torch, card)
     tally = Tally()
     with tempfile.TemporaryDirectory(prefix="gatb_smoke_") as tmp:
         reads, bench_path, truth, bench_fold = phase_bench(
             tally, tmp, S, count_kmers)
-        phase_k63(tally, tmp, S, count_kmers)
+        k63_path = phase_k63(tally, tmp, S, count_kmers)
         stress_path, stress_fold, fold_got = phase_stress(
             tally, tmp, S, count_kmers, card)
         lsm_got = phase_lsm(tally, S, count_kmers, bench_path, bench_fold,
                             stress_path, stress_fold, card)
         os.remove(stress_path)
-        del stress_fold
         phase_multibank(tally, tmp, S, reads)
         phase_dbgh5(tally, tmp, S, bench_path, truth)
         phase_bitonic(tally, S, torch, truth)
+        graph_got = {"bench": phase_postsolid_bench(tally, S, bench_path,
+                                                    truth, card),
+                     "k=63": phase_postsolid_k63(tally, S, k63_path, card)}
+        graph_got["stress"], err_g = phase_postsolid_stress(
+            tally, S, R, stress_fold, card)
+        del stress_fold
     log(f"launches in the stress count: fold {fold_got}, LSM {lsm_got}")
-    err_s = phase_shapes(torch, S, tally.shapes)
+    log(f"launches in the postsolid builds: {graph_got}")
+    err_s = phase_shapes(torch, S, R, tally.shapes)
+    err["rank_rows"] = max(err["rank_rows"], err_g)
     for name in err:
         err[name] = max(err[name], err_t[name], err_s[name])
     log(f"total {time.time() - t_all:.1f} s")
-    kernels = [{"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": REPLACES[name],
+    kernels = [{"name": name, "route": "cuda",
+                "source": KERNEL_SOURCE[name], "replaces": REPLACES[name],
                 "launches": tally.launches[name],
                 "max_abs_err": err[name], **times[name]}
                for name in REPLACES]

@@ -1,24 +1,33 @@
-"""gatb_core_tpu_torch — the k-mer counting engine on PyTorch and CUDA.
+"""gatb_core_tpu_torch — the k-mer / de Bruijn graph engine on PyTorch and CUDA.
 
 A port of ``gatb_core_tpu`` (JAX on a TPU) to one NVIDIA H100. It keeps
 the JAX package's module layout and function names; the JAX package stays
 the reference it is tested against. The port covers counting (fold path
-and LSM merge chain, multibank) and the counting stage of dbgh5:
+and LSM merge chain, multibank) and the graph build of dbgh5 without its
+MPHF stage (Bloom, debloom, adjacency, branching, the node queries):
 
-    from gatb_core_tpu_torch import count_kmers
+    from gatb_core_tpu_torch import Graph, count_kmers
     res = count_kmers("reads.fa", kmer_size=31, abundance_min=3)
+    graph = Graph.create("reads.fa", kmer_size=31, mphf_kind="none")
 
     python -m gatb_core_tpu_torch.tools.dbgh5 -in reads.fa -out graph.h5 \
-        -bloom none -debloom none -mphf none -branching-nodes none
+        -mphf none
 
 Tensors live on ``device="cuda"`` by default; the Pallas sort kernels of
-the JAX package are hand-written CUDA kernels here (ops/limb_sort.py),
-built with nvcc at first use.
+the JAX package are hand-written CUDA kernels here (ops/limb_sort.py), as
+is the rank search every graph stage stands on (ops/rank_search.py), built
+with nvcc at first use.
 """
 
 from .bank.fasta import (  # noqa: F401
-    BankFasta, BankStrings, IBank, Sequence, open_bank)
+    BankAlbum, BankComposite, BankFasta, BankStrings, IBank, Sequence,
+    open_bank)
+from .collections.bloom import BloomFilter, build_bloom  # noqa: F401
+from .debruijn.graph import Graph  # noqa: F401
 from .kmer.counting import (  # noqa: F401
     CountConfig, CountResult, MultiBankCountResult, SortingCount,
-    count_kmers, count_kmers_multibank)
+    count_kmers, count_kmers_multibank, solidity_check)
 from .kmer.histogram import Histogram  # noqa: F401
+from .storage.hdf5 import Storage  # noqa: F401
+
+__version__ = "0.1.0"

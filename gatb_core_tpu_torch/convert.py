@@ -1,14 +1,24 @@
-"""State carried between the JAX package and this port: count tables.
+"""State carried between the JAX package and this port: count tables, and
+the Bloom and debloom structures of the graph build.
 
-There are no model weights; the state is a distinct count table and the
-fold accumulator. The JAX package hands them over as numpy arrays:
-a table is ``(planes, counts, n)`` with ``planes`` a tuple of (C,) uint32
-limb planes (most significant first), ``counts`` (C,) int32 and ``n`` the
-number of live rows; a result's ``solid_kmers`` is (N, W) uint32. The port
+There are no model weights; the state is a distinct count table, the
+fold accumulator, and a graph's Bloom filter and cFP encoding. The JAX
+package hands tables over as numpy arrays: a table is
+``(planes, counts, n)`` with ``planes`` a tuple of (C,) uint32 limb planes
+(most significant first), ``counts`` (C,) int32 and ``n`` the number of
+live rows; a result's ``solid_kmers`` is (N, W) uint32. The port
 keeps planes as one (W, C) int32 tensor holding the same bit patterns. A
 multibank table adds B count columns (a tuple there, one (B, C) tensor
 here); a row-major ``CountTable`` and a ``MultiBankCountResult`` have the
 same fields on both sides.
+
+A ``BloomFilter`` has the same six fields in both packages, with ``words``
+a uint32 array there and an int32 tensor of the same bits here; a
+``DebloomResult`` and its ``CascadeCFP`` hold numpy sets and such blooms.
+This module imports nothing of the JAX package: towards the port it reads
+any object with those fields, towards JAX it hands out the fields with
+numpy arrays (``gatb_core_tpu.collections.bloom.BloomFilter(
+jnp.asarray(words), *rest)`` rebuilds the filter there).
 """
 
 from __future__ import annotations
@@ -118,3 +128,53 @@ def multibank_result_to_numpy(res):
     return (np.asarray(res.kmers), np.asarray(res.counts_per_bank),
             np.asarray(res.counts_sum), np.asarray(res.solid_mask),
             dict(res.info))
+
+
+def bloom_to_torch(bloom, device="cpu"):
+    """Any BloomFilter-shaped object (the JAX package's, or fields with a
+    numpy ``words``) -> the port's BloomFilter with words on ``device``."""
+    from .collections.bloom import BloomFilter
+
+    return BloomFilter(u32_to_torch(np.asarray(bloom.words), device),
+                       int(bloom.size_bits), int(bloom.n_hash),
+                       int(bloom.user_seed), str(bloom.kind),
+                       int(bloom.kmer_size))
+
+
+def bloom_to_numpy(bloom) -> tuple:
+    """The port's BloomFilter -> (words uint32 numpy, size_bits, n_hash,
+    user_seed, kind, kmer_size), the order of the JAX package's fields."""
+    return (bloom.to_numpy(), bloom.size_bits, bloom.n_hash,
+            bloom.user_seed, bloom.kind, bloom.kmer_size)
+
+
+def debloom_to_torch(res, device="cpu"):
+    """A DebloomResult-shaped object of the JAX package -> the port's
+    DebloomResult (cascade and all), Bloom words on ``device``."""
+    from .kmer.debloom import CascadeCFP, DebloomResult
+
+    cascade = None
+    if res.cascade is not None:
+        cascade = CascadeCFP(
+            [bloom_to_torch(b, device) for b in res.cascade.blooms],
+            np.asarray(res.cascade.t4, np.uint32))
+    return DebloomResult(bloom_to_torch(res.bloom, device),
+                         np.asarray(res.cfp, np.uint32), int(res.nb_cfp),
+                         dict(res.info), res.kind, cascade)
+
+
+def debloom_to_numpy(res) -> dict:
+    """The port's DebloomResult -> its fields with numpy arrays: ``bloom``
+    and each of ``cascade_blooms`` as ``bloom_to_numpy`` tuples, ``cfp``,
+    ``nb_cfp``, ``info``, ``kind`` and ``t4`` (None without a cascade)."""
+    cas = res.cascade
+    return {
+        "bloom": bloom_to_numpy(res.bloom),
+        "cfp": np.asarray(res.cfp, np.uint32),
+        "nb_cfp": int(res.nb_cfp),
+        "info": dict(res.info),
+        "kind": res.kind,
+        "cascade_blooms": None if cas is None
+        else [bloom_to_numpy(b) for b in cas.blooms],
+        "t4": None if cas is None else np.asarray(cas.t4, np.uint32),
+    }

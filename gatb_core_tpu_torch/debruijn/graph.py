@@ -1,48 +1,100 @@
-"""De Bruijn graph over the solid k-mer set: the counting stage.
+"""De Bruijn graph over the solid k-mer set (GraphTemplate equivalent).
 
-Counting-stage port of gatb_core_tpu/debruijn/graph.py (reference:
-debruijn/impl/Graph.hpp:540 / Graph.cpp). The build is the reference's
-state machine (Graph.cpp build_visitor_solid + build_visitor_postsolid):
-configuration -> counting -> [mphf -> bloom -> debloom -> branching],
-persisted stage-by-stage into HDF5 storage (Graph.hpp:1010-1030 state
-bits). This module runs the first half: the repartitor census, DSK
-counting on the device, and the /configuration, /dsk/solid, /histogram and
-/minimizers groups. The postsolid stages (MPHF, Bloom, debloom,
-branching), node queries, adjacency and ``Graph.load`` are not ported yet:
-``build_postsolid`` raises ``NotImplementedError`` naming the stage for any
-kind other than ``none``.
+Port of gatb_core_tpu/debruijn/graph.py (reference: debruijn/impl/
+Graph.hpp:540 / Graph.cpp) without ``Graph.load``, the MPHF, ``simplify``,
+``contigs`` and ``unitig_graph``. The reference's node membership is
+(Bloom AND not-cFP), which by construction of the cFP set equals exact
+membership in the solid set for every query on the traversal path
+(neighbors of contained nodes). Here membership is exact by design: a rank
+search over the sorted solid table (collections/sortedset, the
+``rank_rows`` kernel of ops/rank_search.py), with the Bloom + cFP oracle
+as a second mode, so graph topology is identical to the reference's for
+the same solid set.
 
-Node identity: canonical kmer value, represented as (W,) uint32 big-endian
-limbs, in the sorted solid table.
+Node identity: canonical k-mer value, represented as (W,) uint32 big-endian
+limbs. Node index (nodeMPHFIndex, Graph.hpp:924) = rank in the sorted solid
+table. Per-node arrays (abundance, state, adjacency) are indexed by it.
+
+The build is the reference's state machine (Graph.cpp build_visitor_solid +
+build_visitor_postsolid): configuration -> counting -> [mphf -> bloom ->
+debloom -> branching], persisted stage-by-stage into HDF5 storage
+(Graph.hpp:1010-1030 state bits). The MPHF stage is not ported yet:
+``build_postsolid`` raises ``NotImplementedError`` for any ``mphf_kind``
+other than ``none``.
+
+The solid table, the Bloom words and the cFP sets live on ``device``
+(default ``"cuda"``; nothing falls back to the CPU). Queries take and
+return numpy arrays, as in the JAX package. There is no ``mesh`` argument
+yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..collections.abundance import discretize
+from ..collections.abundance import dediscretize, discretize
+from ..collections.sortedset import SortedKmerSet
 from ..kmer.counting import CountConfig, SortingCount
-from ..ops.kmer_ops import nb_limbs
+from ..kmer.debloom import BloomCfpContainer, build_debloom, rows_to_device
+from ..kmer.model import canonical, kmer_to_string, string_to_kmer
+from ..ops.kmer_ops import kmers_to_py, nb_limbs, py_to_limbs
+from ..ops.neighbor_ops import neighbor_candidates
 from ..storage import hdf5 as storage_mod
-from ..storage.hdf5 import Storage
+from ..storage.hdf5 import (STATE_ADJACENCY_DONE, STATE_BRANCHING_DONE,
+                            Storage)
+
+
+def _adjacency_kernel(nodes: torch.Tensor, table: torch.Tensor, k: int,
+                      n_table=None) -> torch.Tensor:
+    """8-bit adjacency masks for a batch of nodes against the solid table:
+    the 8 neighbor candidates of every node, one rank search
+    (ops/sortops.rank_join_traced) and a pack of the 8 found bits. The
+    reference probes its membership oracle per neighbor
+    (Graph.cpp:3508-3610). nodes: (N, W) limbs; table: (C, W) limbs, the
+    first ``n_table`` rows live. Returns (N,) uint8 on the nodes' device."""
+    from ..ops.sortops import rank_join_traced
+
+    n = nodes.shape[0]
+    if n_table is None:
+        n_table = table.shape[0]
+    cands = neighbor_candidates(nodes, k)      # (N, 8, W)
+    _, found = rank_join_traced(table, cands.reshape(n * 8, -1), n_table)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=found.device)
+    return (found.reshape(n, 8).to(torch.int32) * weights[None, :]) \
+        .sum(dim=1).to(torch.uint8)
 
 
 class Graph:
-    """Node-centric de Bruijn graph: the solid table and its build info."""
+    """Node-centric de Bruijn graph (batched, device-resident queries)."""
 
     def __init__(self, kmer_size: int, solid_limbs: np.ndarray,
                  solid_counts: np.ndarray, storage: Storage | None = None,
-                 info: dict | None = None):
+                 info: dict | None = None, device="cuda"):
         self.kmer_size = kmer_size
+        self.device = torch.device(device)
         self._k = kmer_size
         self._w = nb_limbs(kmer_size)
         self.solid_limbs = np.asarray(solid_limbs, np.uint32)
+        if self.solid_limbs.ndim != 2:
+            self.solid_limbs = self.solid_limbs.reshape(-1, self._w)
         self.solid_counts = np.asarray(solid_counts, np.int32)
+        # the one device copy of the solid table, (N, W) int32 storage
+        self._set = SortedKmerSet(
+            rows_to_device(self.solid_limbs, self.device),
+            len(self.solid_limbs))
         self.storage = storage
         self.info = dict(info or {})
-        # per-node abundance map (8-bit discretized)
+        n = len(self.solid_limbs)
+        # per-node maps (indexed by rank): abundance (8-bit discretized),
+        # state byte (bit0: deleted, bits1+: user marks), adjacency cache
         self.abundance_codes = discretize(self.solid_counts)
+        self.node_state = np.zeros(n, np.uint8)
+        self._adjacency: np.ndarray | None = None
         self._branching: np.ndarray | None = None
+        self._debloom = None          # DebloomResult (bloom + cFP)
+        self._container = None        # BloomCfpContainer membership oracle
+        self.membership_mode = "exact"  # or "bloom_cfp"
 
     # ------------------------------------------------------------------
     # creation
@@ -64,8 +116,8 @@ class Graph:
         each stage persisted + state-bit-stamped, then the postsolid stages
         (build_visitor_postsolid, Graph.cpp:433-605). Kind defaults mirror
         the reference enums (misc/api/Enums.hpp:73-271); 'none' skips a
-        stage, and every other kind raises until those stages are ported
-        (see build_postsolid)."""
+        stage. The MPHF stage is not ported yet: ``mphf_kind`` other than
+        'none' raises (see build_postsolid)."""
         cfg = CountConfig(kmer_size=kmer_size, abundance_min=abundance_min,
                           abundance_max=abundance_max,
                           minimizer_size=minimizer_size, histo_max=histo_max,
@@ -121,7 +173,7 @@ class Graph:
                 rep_box[0].save(storage)
 
         graph = cls(kmer_size, result.solid_kmers, result.solid_counts,
-                    storage, result.info)
+                    storage, result.info, device=device)
         graph.build_postsolid(bloom_kind=bloom_kind,
                               debloom_kind=debloom_kind,
                               mphf_kind=mphf_kind,
@@ -135,22 +187,39 @@ class Graph:
                         mphf_kind: str = "boophf",
                         build_branching: bool = True) -> None:
         """build_visitor_postsolid (Graph.cpp:433-605): MPHF -> Bloom ->
-        Debloom -> Branching. None of these stages is ported yet, so a
-        stage that is asked for raises (it is never skipped silently);
-        with every kind 'none' and no branching there is nothing to do."""
+        Debloom -> Branching, persisting each stage. Per-stage wall
+        times land in `info` as reference-style `time.` properties
+        (the getInfo 'time' tree each Algorithm emits,
+        Algorithm.cpp:56-62 pattern), also when every stage is 'none'.
+        The MPHF stage is not ported yet, so asking for it raises (it is
+        never skipped silently)."""
+        from ..misc.time_info import TimeInfo
+
         if mphf_kind != "none":
             raise NotImplementedError(
-                f"postsolid stage 'mphf' ({mphf_kind}) is not ported yet: "
-                "pass mphf_kind='none' (dbgh5: -mphf none)")
+                f"postsolid stage 'mphf' ({mphf_kind}) is not ported yet "
+                "(ROADMAP A5.4): pass mphf_kind='none' (dbgh5: -mphf none)")
+        ti = TimeInfo()
         if bloom_kind != "none" and debloom_kind != "none":
-            raise NotImplementedError(
-                f"postsolid stage 'bloom/debloom' ({bloom_kind}, "
-                f"{debloom_kind}) is not ported yet: pass bloom_kind='none'"
-                " or debloom_kind='none' (dbgh5: -bloom none -debloom none)")
+            # BloomAlgorithm + DebloomAlgorithm (Graph.cpp:517-556)
+            with ti.section("debloom"):
+                deb = build_debloom(self._padded_table(), self._k,
+                                    cascading=debloom_kind == "cascading",
+                                    bloom_kind=bloom_kind,
+                                    device=self.device)
+                self._debloom = deb
+                self._container = BloomCfpContainer(deb)
+                self.info.update(deb.info)
+                if self.storage is not None:
+                    storage_mod.save_bloom(self.storage, deb.bloom)
+                    storage_mod.save_debloom(self.storage, deb.cfp,
+                                             self._k, kind=deb.kind,
+                                             cascade=deb.cascade)
         if build_branching:
-            raise NotImplementedError(
-                "postsolid stage 'branching' is not ported yet: pass "
-                "build_branching=False (dbgh5: -branching-nodes none)")
+            with ti.section("branching"):
+                # BranchingAlgorithm (Graph.cpp:572-582)
+                self.branching_nodes()
+        self.info.update(ti.get_properties("postsolid_time"))
 
     # ------------------------------------------------------------------
     # basic accessors
@@ -159,12 +228,212 @@ class Graph:
     def nb_nodes(self) -> int:
         return len(self.solid_limbs)
 
+    def iter_nodes(self, chunk: int = 1 << 16):
+        """Yield (limbs_chunk, counts_chunk) over all nodes in sorted order."""
+        for i in range(0, self.nb_nodes, chunk):
+            yield self.solid_limbs[i:i + chunk], \
+                self.solid_counts[i:i + chunk]
+
+    def build_node(self, seq: str) -> np.ndarray:
+        """Node from a k-mer string (Graph::buildNode): canonical limbs
+        (W,)."""
+        if len(seq) != self._k:
+            raise ValueError(f"need a {self._k}-mer, got {len(seq)}")
+        v = canonical(string_to_kmer(seq), self._k)
+        return py_to_limbs([v], self._k)[0]
+
+    def node_to_string(self, node: np.ndarray) -> str:
+        return kmer_to_string(kmers_to_py(np.asarray(node)[None])[0], self._k)
+
+    # ------------------------------------------------------------------
+    # membership / index / abundance (batched)
+    # ------------------------------------------------------------------
+    def _as_batch(self, nodes) -> np.ndarray:
+        nodes = np.asarray(nodes, np.uint32)
+        if nodes.ndim == 1:
+            nodes = nodes[None]
+        return nodes
+
+    def contains(self, nodes, mode: str | None = None) -> np.ndarray:
+        """(N, W) or (W,) -> bool array.
+
+        mode 'exact' (default): rank search in the sorted solid table.
+        mode 'bloom_cfp': the reference's Bloom AND NOT cFP oracle
+        (ContainerNode.hpp:60-90 / :109-190 cascading), exact for every
+        query in the 1-neighborhood of solid k-mers, i.e. the closure
+        traversal operates in; requires a completed debloom stage."""
+        batch = self._as_batch(nodes)
+        mode = mode or self.membership_mode
+        if mode == "bloom_cfp":
+            if self._container is None:
+                raise ValueError("no debloom stage: bloom_cfp unavailable")
+            return self._container.contains(batch)
+        return self._set.contains(
+            rows_to_device(batch, self.device)).cpu().numpy()
+
+    def set_membership_mode(self, mode: str) -> None:
+        if mode not in ("exact", "bloom_cfp"):
+            raise ValueError(f"unknown membership mode {mode!r}")
+        if mode == "bloom_cfp" and self._container is None:
+            raise ValueError("no debloom stage: bloom_cfp unavailable")
+        self.membership_mode = mode
+
+    def node_index(self, nodes) -> np.ndarray:
+        """nodeMPHFIndex (Graph.hpp:924): rank in sorted table, -1 if
+        absent."""
+        batch = self._as_batch(nodes)
+        return self._set.rank(
+            rows_to_device(batch, self.device)).cpu().numpy()
+
+    def query_abundance(self, nodes) -> np.ndarray:
+        """Discretized abundance (queryAbundance, Graph.hpp:900)."""
+        idx = self.node_index(nodes)
+        out = dediscretize(self.abundance_codes[np.maximum(idx, 0)])
+        return np.where(idx >= 0, out, 0)
+
+    # ---- node state map (queryNodeState/setNodeState, Graph.hpp:904-913)
+    def set_node_state(self, nodes, value: int) -> None:
+        idx = self.node_index(nodes)
+        self.node_state[idx[idx >= 0]] = np.uint8(value << 1) | \
+            (self.node_state[idx[idx >= 0]] & 1)
+
+    def query_node_state(self, nodes) -> np.ndarray:
+        idx = self.node_index(nodes)
+        return (self.node_state[np.maximum(idx, 0)] >> 1) * (idx >= 0)
+
+    def delete_node(self, nodes) -> None:
+        idx = self.node_index(nodes)
+        self.node_state[idx[idx >= 0]] |= 1
+
+    def delete_nodes_by_index(self, idx: np.ndarray) -> None:
+        self.node_state[idx] |= 1
+
+    def is_node_deleted(self, nodes) -> np.ndarray:
+        idx = self.node_index(nodes)
+        return (self.node_state[np.maximum(idx, 0)] & 1).astype(bool) \
+            & (idx >= 0)
+
+    # ------------------------------------------------------------------
+    # adjacency / neighbors
+    # ------------------------------------------------------------------
+    def _padded_table(self) -> torch.Tensor:
+        """The device copy of the solid table that every stage shares:
+        (N, W) int32 storage. The name is the JAX package's, whose copy is
+        padded to a power of two; the rank search takes the live row count
+        at run time, so this one carries no padding."""
+        return self._set.limbs
+
+    def adjacency_masks(self, nodes) -> np.ndarray:
+        """8-bit neighbor mask per node: bits 0-3 out by nt, 4-7 in by nt."""
+        batch = self._as_batch(nodes)
+        return _adjacency_kernel(rows_to_device(batch, self.device),
+                                 self._padded_table(), self._k,
+                                 self._set.n).cpu().numpy()
+
+    def neighbors(self, node) -> dict:
+        """Scalar convenience: {'out': [limbs...], 'in': [limbs...]}."""
+        batch = self._as_batch(node)
+        cands = neighbor_candidates(rows_to_device(batch, self.device),
+                                    self._k).cpu().numpy().astype(np.uint32)
+        mask = self.adjacency_masks(batch)[0]
+        out = [cands[0, i] for i in range(4) if mask & (1 << i)]
+        inn = [cands[0, 4 + i] for i in range(4) if mask & (1 << (4 + i))]
+        return {"out": out, "in": inn}
+
+    def out_degree(self, nodes) -> np.ndarray:
+        m = self.adjacency_masks(nodes)
+        return _popcount4(m & 0x0F)
+
+    def in_degree(self, nodes) -> np.ndarray:
+        m = self.adjacency_masks(nodes)
+        return _popcount4(m >> 4)
+
+    def precompute_adjacency(self, chunk: int | None = None) -> np.ndarray:
+        """Cache the 8-bit mask for every node (precomputeAdjacency,
+        Graph.cpp:3508-3610): a sweep over the device table in chunks of
+        ``sweep_chunk`` nodes (at most ``chunk`` where given)."""
+        if self._adjacency is None:
+            import time as _t
+
+            from ..ops.sortops import sweep_chunk
+
+            t0 = _t.time()
+            table = self._padded_table()
+            step = sweep_chunk(self.nb_nodes)
+            if chunk:   # caller-imposed device-memory bound
+                step = max(1, min(step, chunk))
+            masks = torch.empty((self.nb_nodes,), dtype=torch.uint8,
+                                device=self.device)
+            for i in range(0, self.nb_nodes, step):
+                masks[i:i + step] = _adjacency_kernel(
+                    table[i:i + step], table, self._k, self._set.n)
+            self._adjacency = masks.cpu().numpy()
+            self.info["postsolid_time.adjacency"] = round(_t.time() - t0, 3)
+            if self.storage is not None:
+                g = self.storage.group("adjacency")
+                g.set_dataset("masks", self._adjacency)
+                self.storage.set_state_bit(STATE_ADJACENCY_DONE)
+        return self._adjacency
+
+    # ------------------------------------------------------------------
+    # branching (BranchingAlgorithm, debruijn/impl/BranchingAlgorithm.cpp)
+    # ------------------------------------------------------------------
+    def branching_nodes(self) -> np.ndarray:
+        """Sorted branching nodes (indegree != 1 or outdegree != 1)."""
+        if self._branching is None:
+            adj = self.precompute_adjacency()
+            outd = _popcount4(adj & 0x0F)
+            ind = _popcount4(adj >> 4)
+            mask = (outd != 1) | (ind != 1)
+            self._branching = self.solid_limbs[mask]
+            self._branching_counts = self.solid_counts[mask]
+            if self.storage is not None:
+                g = self.storage.group("branching")
+                words = storage_mod.limbs_to_words64(self._branching)
+                rec = np.zeros(len(self._branching),
+                               dtype=storage_mod.count_dtype(words.shape[1]))
+                rec["value"] = words
+                rec["abundance"] = self._branching_counts
+                g.set_dataset("nodes", rec)
+                g.set_property("nb_branching", np.uint64(len(rec)))
+                g.set_property("checksum_branching",
+                               self.checksum_branching())
+                self.storage.set_state_bit(STATE_BRANCHING_DONE)
+        return self._branching
+
+    def checksum_branching(self) -> str:
+        """Sum of branching k-mer values mod 2^(64*words), printed exactly
+        like LargeInt::operator<< (LargeInt.hpp:630-648): 64-bit hex words
+        high-to-low, '.'-separated, leading zero words skipped
+        (BranchingAlgorithm.cpp:263-314)."""
+        nodes = self.branching_nodes()
+        words = max(1, (self._k + 31) // 32)
+        # the sum of N values below 2^(32 W) is the limb columns' sums,
+        # each shifted to its limb's place
+        cols = nodes.astype(np.uint64).sum(axis=0, dtype=np.uint64) \
+            if len(nodes) else np.zeros(self._w, np.uint64)
+        total = 0
+        for j in range(self._w):
+            total += int(cols[j]) << (32 * (self._w - 1 - j))
+        total %= 1 << (64 * words)
+        ws = [(total >> (64 * i)) & 0xFFFFFFFFFFFFFFFF
+              for i in range(words)]
+        i = words - 1
+        while i >= 0 and ws[i] == 0:
+            i -= 1
+        if i < 0:
+            return ""  # reference prints nothing for an all-zero value
+        return ".".join(f"{ws[j]:x}" for j in range(i, -1, -1))
+
     def get_info(self) -> dict:
         info = dict(self.info)
         info.update({
             "kmer_size": self._k,
             "nb_solid_kmers": self.nb_nodes,
         })
+        if self._branching is not None:
+            info["nb_branching"] = len(self._branching)
+            info["checksum_branching"] = self.checksum_branching()
         return info
 
 
@@ -181,3 +450,10 @@ def _plan_partitions(bank, kmer_size: int, minimizer_size: int) -> int:
         return max(1, plan.nb_partitions)
     except (ValueError, OSError):
         return 1
+
+
+def _popcount4(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint8)
+    x = (x & 0x55) + ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x & 0x0F) + (x >> 4)

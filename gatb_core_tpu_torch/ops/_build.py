@@ -24,8 +24,9 @@ CSRC_DIR = os.path.join(PKG_DIR, "ops", "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()           # guards the two dictionaries below
 _libs: dict[str, ctypes.CDLL] = {}
+_build_locks: dict[str, threading.Lock] = {}
 # seconds spent compiling, by source name (0.0 when the library was cached)
 build_seconds: dict[str, float] = {}
 
@@ -78,9 +79,12 @@ def nvcc_path() -> str:
 def load_cuda(stem: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``ops/csrc/<stem>.cu``. ``defines`` are
     ``-D`` macros (``NAME=VALUE``) of a variant build, which is a library
-    of its own."""
+    of its own. Each library has a lock of its own, so threads that ask
+    for different sources compile at the same time."""
     key = " ".join((stem,) + tuple(defines))
     with _lock:
+        build_lock = _build_locks.setdefault(key, threading.Lock())
+    with build_lock:
         lib = _libs.get(key)
         if lib is None:
             flags = NVCC_FLAGS + [f"-D{d}" for d in defines]

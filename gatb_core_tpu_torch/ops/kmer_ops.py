@@ -59,6 +59,10 @@ def lex_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return lt
 
 
+def lex_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(dim=-1)
+
+
 class KmerBatch(NamedTuple):
     """Extracted canonical k-mers for a padded batch of reads.
 

@@ -1,7 +1,9 @@
 """Sort / distinct-reduce primitives over limb-plane k-mer keys.
 
-Port of the counting half of gatb_core_tpu/ops/sortops.py (lines 52-224
-and 439-823): k-mers ride as one (P, N) int32 tensor of uint32 limb planes
+Port of gatb_core_tpu/ops/sortops.py without its stacked merges (lines
+227-437): the counting half (lines 52-224 and 439-823) and, at the end of
+the file, the rank search of the graph stages (lines 825-966). In the
+counting half k-mers ride as one (P, N) int32 tensor of uint32 limb planes
 (plane 0 most significant, see ops/limb_sort.py), sorted by the
 hand-written kernels (a bitonic sort of tiles, then merge-path merge
 levels), then reduced to a distinct table by run detection and a weight
@@ -428,3 +430,87 @@ def merge_tables_planes(pa, ca: torch.Tensor, na, pb, cb: torch.Tensor, nb,
     inv = idx >= (na + nb)
     return count_sorted_planes(cat[:w], inv, weights=cat[w],
                                cap_out=cap_out)
+
+
+# ---------------------------------------------------------------------------
+# Rank / membership of rows in a sorted table (the graph half of the JAX
+# module, sortops.py:825-966).
+#
+# Every postsolid stage (debloom's 8 probes per solid k-mer, the adjacency
+# precompute, batched membership) needs rank-in-sorted-table for large query
+# batches. The JAX package has two ways to it, a co-sort of table and
+# queries (``rank_join``) and a gather loop (``method="binsearch"``), and a
+# dispatcher between them, because on its device a gather is slow. Here
+# there is ONE search, ``ops/rank_search.rank_rows``: a hand-written CUDA
+# kernel on a CUDA tensor, its plain version on a CPU tensor. The three
+# names of the JAX module stay and all call it.
+# ---------------------------------------------------------------------------
+
+
+def rank_join_traced(table: torch.Tensor, queries: torch.Tensor, n_table):
+    """Rank + membership of query rows in a sorted distinct-key table.
+
+    table: (C, W) limbs ascending (int32 storage, or int64 zero-extended);
+    rows >= n_table are padding. queries: (Q, W), any order; the all-ones
+    row is never found. Returns (rank (Q,) int32: index in the table, -1
+    if absent; found (Q,) bool), in the original query order. ``n_table``
+    is an int or a 0-d tensor (the kernel takes it at run time, so no
+    padded capacity is needed)."""
+    from .rank_search import as_rows, rank_rows
+
+    return rank_rows(as_rows(table), as_rows(queries), int(n_table))
+
+
+rank_join = rank_join_traced
+
+
+def rank_limbs(table: torch.Tensor, queries: torch.Tensor, n_table: int,
+               method: str = "auto"):
+    """Same contract as ``rank_join``. ``method`` is kept for name parity
+    with the JAX module and accepts "auto", "join" and "binsearch": all
+    three run the same search (``rank_search.rank_rows``)."""
+    if method not in ("auto", "join", "binsearch"):
+        raise ValueError(f"unknown rank method {method!r}")
+    return rank_join_traced(table, queries, n_table)
+
+
+def pad_rows_pow2(table):
+    """Host helper: pad a sorted (N, W) uint32 row table (numpy) to the
+    next power-of-two capacity with all-ones sentinel rows. Returns
+    (table, N). Nothing on the port's postsolid path needs it (the search
+    takes the live row count at run time); kept for callers that hand a
+    padded table on."""
+    import numpy as np
+
+    n, w = table.shape if table.ndim == 2 else (0, 1)
+    cap = _next_pow2(max(n, 1))
+    if cap == n:
+        return table, n
+    out = np.full((cap, w), 0xFFFFFFFF, np.uint32)
+    out[:n] = table
+    return out, n
+
+
+def sweep_chunk(n: int, parts: int = 1, lo: int = 4096,
+                hi: int = 1 << 21) -> int:
+    """Query-chunk size for table sweeps: about ``parts`` chunks per sweep,
+    clamped to [lo, hi] and rounded up to a power of two. A chunk bounds
+    the device memory of one step (8 candidates per node, their hashes and
+    the dedup sort) and nothing else: the result of a sweep does not depend
+    on it."""
+    return _next_pow2(max(lo, min(hi, -(-max(n, 1) // parts))))
+
+
+def shrink(table: CountTable, capacity: int) -> CountTable:
+    """Shrink or grow a table to the given capacity (>= n); rows past n
+    are all-ones padding with zero counts."""
+    n = int(table.n)
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < live rows {n}")
+    dev = table.kmers.device
+    kmers = torch.full((capacity, table.width), SENTINEL, dtype=I32,
+                       device=dev)
+    counts = torch.zeros((capacity,), dtype=I32, device=dev)
+    kmers[:n] = _rows_i32(table.kmers)[:n]
+    counts[:n] = table.counts[:n]
+    return CountTable(kmers, counts, torch.tensor(n, dtype=I32, device=dev))

@@ -1,9 +1,9 @@
 """Persistent hierarchical storage: HDF5-backed Storage/Group tree.
 
-Counting-stage port of gatb_core_tpu/storage/hdf5.py (host code: numpy and
-h5py); the Bloom, debloom and MPHF savers and loaders of that module come
-with the postsolid graph build. h5py is imported when a Storage is opened,
-so the module imports where h5py is not installed.
+Port of gatb_core_tpu/storage/hdf5.py without its MPHF savers and loaders
+(host code: numpy and h5py; the Bloom loaders put the packed words on the
+device asked for). h5py is imported when a Storage is opened, so the module
+imports where h5py is not installed.
 
 Equivalent of gatb-core's storage layer (tools/storage/impl/
 Storage.hpp:166-669, StorageHDF5.hpp): a Storage is a tree of Groups holding
@@ -20,6 +20,10 @@ Graph.cpp:424-428 + CountProcessorDump.hpp:94 + CountProcessorHistogram.hpp:147)
   /histogram/histogram dataset: compound {index: u64, abundance: u64}
   /histogram/cutoff    dataset: u64[1]
   /minimizers          repartition table
+  /bloom               dataset 'bloom' (uint32 words) + size/hash/kind attrs
+  /debloom             datasets cfp, cfp_all; group cascading (bloom2-4, t4)
+  /adjacency/masks     uint8 per node
+  /branching/nodes     compound {value, abundance} of the branching nodes
 
 Mapping note: k-mer values are stored as little-endian uint64 word arrays,
 the exact in-memory layout of the reference's LargeInt<words>
@@ -323,6 +327,23 @@ def save_histogram(storage: Storage, histogram) -> None:
     g.set_property("first_peak", np.uint64(histogram.first_peak))
 
 
+def save_bloom(storage: Storage, bloom) -> None:
+    """Write the Bloom filter into /bloom (BloomAlgorithm persistence,
+    kmer/impl/BloomAlgorithm.cpp:155-203 saves into group 'bloom')."""
+    g = storage.group("bloom")
+    _save_bloom_group(g, bloom)
+    storage.set_state_bit(STATE_BLOOM_DONE)
+
+
+def _save_bloom_group(g: Group, bloom) -> None:
+    g.set_dataset("bloom", bloom.to_numpy())     # uint32 words
+    g.set_property("size_bits", np.uint64(bloom.size_bits))
+    g.set_property("nb_hash", np.uint64(bloom.n_hash))
+    g.set_property("seed", np.uint64(bloom.user_seed))
+    g.set_property("kind", bloom.kind)
+    g.set_property("kmer_size", np.uint64(bloom.kmer_size))
+
+
 def _attr_str(v) -> str:
     """Normalize an HDF5 attribute to str: the reference writes every
     property as a (1,)-shaped vlen string; ours are scalars."""
@@ -343,6 +364,100 @@ def prop_int(g: Group, key: str, default: int = 0) -> int:
 def prop_str(g: Group, key: str, default: str = "") -> str:
     v = g.get_property(key, None)
     return default if v is None else _attr_str(v)
+
+
+def _bloom_from_words(words: np.ndarray, device, *params):
+    """uint32 words (numpy) + (size_bits, n_hash, seed, kind, kmer_size)
+    -> the port's BloomFilter with the words on ``device``."""
+    from ..collections.bloom import BloomFilter
+    from ..convert import u32_to_torch
+
+    return BloomFilter(u32_to_torch(words, device), *params)
+
+
+def load_bloom_dataset(ds, device="cuda"):
+    """Bloom from a reference StorageTools::saveBloom dataset: raw bytes
+    with type/size/nb_hash/kmer_size string attrs (StorageTools.hpp:129)."""
+    raw = np.asarray(ds[...], np.uint8)
+    pad = (-len(raw)) % 4
+    if pad:
+        raw = np.concatenate([raw, np.zeros(pad, np.uint8)])
+    return _bloom_from_words(raw.view("<u4"), device,
+                             int(_attr_str(ds.attrs["size"])),
+                             int(_attr_str(ds.attrs["nb_hash"])),
+                             0, _attr_str(ds.attrs["type"]),
+                             int(_attr_str(ds.attrs["kmer_size"])))
+
+
+def load_bloom_group(g: Group, device="cuda"):
+    """Read a Bloom filter from a group holding a 'bloom' dataset (this
+    engine's layout, or a reference .h5 where the params ride as string
+    attrs on the dataset itself)."""
+    if "bloom" not in g:
+        return None
+    if g.get_property("size_bits") is None:  # reference layout
+        return load_bloom_dataset(g._g["bloom"], device)
+    return _bloom_from_words(g.get_dataset("bloom"), device,
+                             int(g.get_property("size_bits")),
+                             int(g.get_property("nb_hash")),
+                             int(g.get_property("seed", 0)),
+                             str(g.get_property("kind", "basic")),
+                             int(g.get_property("kmer_size", 0)))
+
+
+def load_bloom(storage: Storage, device="cuda"):
+    return load_bloom_group(storage.group("bloom"), device)
+
+
+def _limbs_to_words_padded(limbs: np.ndarray, words: int) -> np.ndarray:
+    vals = limbs_to_words64(limbs) if len(limbs) else \
+        np.zeros((0, words), np.uint64)
+    if vals.shape[1] < words and len(vals):
+        vals = np.concatenate(
+            [vals, np.zeros((len(vals), words - vals.shape[1]), np.uint64)],
+            axis=1)
+    return vals[:, :words]
+
+
+def save_debloom(storage: Storage, cfp_limbs: np.ndarray, kmer_size: int,
+                 kind: str = "original", cascade=None) -> None:
+    """Write the cFP set into /debloom (DebloomAlgorithm::createCFP,
+    kmer/impl/DebloomAlgorithm.cpp:476-600). Like the reference, the
+    'cfp' dataset holds the final critical collection (the full set for
+    'original', the exact leftover T4 for 'cascading'); 'cfp_all' always
+    carries the full cFP set (used for exact-set conformance checks)."""
+    g = storage.group("debloom")
+    words = max(1, (kmer_size + 31) // 32)
+    final_set = cascade.t4 if (kind == "cascading" and cascade is not None) \
+        else cfp_limbs
+    g.set_dataset("cfp", _limbs_to_words_padded(final_set, words))
+    g.set_dataset("cfp_all", _limbs_to_words_padded(cfp_limbs, words))
+    g.set_property("nb_cfp", np.uint64(len(cfp_limbs)))
+    g.set_property("kind", kind)
+    if cascade is not None:
+        cg = g.group("cascading")
+        cg.set_property("nb_levels", np.uint64(len(cascade.blooms)))
+        for i, b in enumerate(cascade.blooms):
+            _save_bloom_group(cg.group(f"bloom{i + 2}"), b)
+        cg.set_dataset("t4", _limbs_to_words_padded(cascade.t4, words))
+    storage.set_state_bit(STATE_DEBLOOM_DONE)
+
+
+def load_debloom(storage: Storage, w32: int) -> np.ndarray | None:
+    """The full cFP set (exactness artifact) from /debloom. On a
+    reference .h5 only the final critical collection exists (T4 for
+    cascading); it is returned as-is (the cascade blooms carry the rest
+    of the membership information)."""
+    g = storage.group("debloom")
+    rec = g.get_dataset("cfp_all")
+    if rec is None:
+        rec = g.get_dataset("cfp")
+    if rec is None:
+        return None
+    rec = np.asarray(rec)
+    if rec.ndim == 1:
+        rec = rec[:, None]
+    return words64_to_limbs(rec, w32)
 
 
 def save_config(storage: Storage, info: dict) -> None:

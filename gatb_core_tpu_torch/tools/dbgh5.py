@@ -1,18 +1,18 @@
-"""dbgh5-equivalent CLI: de Bruijn graph build from reads (counting stage).
+"""dbgh5-equivalent CLI: de Bruijn graph build from reads.
 
 Mirrors the reference tool (tools/dbgh5.cpp:34-95) and its flag names
 (tools/misc/api/StringsRepository.hpp): -in, -out, -kmer-size,
 -abundance-min, -abundance-max, -minimizer-size, -histo-max, -check.
 
-This port runs the counting stage on the CUDA device and writes
-/configuration, /dsk/solid, /histogram and /minimizers. The postsolid
-stages are not ported yet and the flag defaults stay the reference's, so a
-run must switch them off, or it ends in NotImplementedError naming the
-stage:
+This port runs counting, Bloom, debloom, adjacency and branching on the
+CUDA device and writes /configuration, /dsk/solid, /histogram, /minimizers,
+/bloom, /debloom, /adjacency and /branching. The MPHF stage is not ported
+yet and the flag defaults stay the reference's, so a run must switch it
+off, or it ends in NotImplementedError naming the stage:
 
   python -m gatb_core_tpu_torch.tools.dbgh5 -in reads.fa -kmer-size 31 \
-      -abundance-min 3 -out graph.h5 -bloom none -debloom none \
-      -mphf none -branching-nodes none [-kff] [-check expected.props]
+      -abundance-min 3 -out graph.h5 -mphf none [-kff] \
+      [-check expected.props]
 """
 
 from __future__ import annotations
@@ -50,13 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["sum", "min", "max", "one", "all", "custom"])
     # postsolid stage kinds (reference flag names STR_BLOOM_KIND /
     # STR_DEBLOOM_KIND / STR_MPHF_TYPE; defaults = reference defaults).
-    # Only 'none' runs in this port so far.
+    # Of -mphf only 'none' runs in this port so far.
     p.add_argument("-bloom", dest="bloom", default="neighbor",
-                   choices=["none", "basic", "cache", "neighbor"],
-                   help="not ported yet: pass none")
+                   choices=["none", "basic", "cache", "neighbor"])
     p.add_argument("-debloom", dest="debloom", default="cascading",
-                   choices=["none", "original", "cascading"],
-                   help="not ported yet: pass none")
+                   choices=["none", "original", "cascading"])
     p.add_argument("-debloom-impl", dest="debloom_impl", default="minimizer",
                    choices=["basic", "minimizer"],
                    help="accepted for reference compat (both impls "
@@ -65,8 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "boophf", "emphf"],
                    help="not ported yet: pass none")
     p.add_argument("-branching-nodes", dest="branching", default="stored",
-                   choices=["none", "stored"],
-                   help="not ported yet: pass none")
+                   choices=["none", "stored"])
     p.add_argument("-verbose", dest="verbose", type=int, default=1)
     # execution-plan flags (ConfigurationAlgorithm inputs,
     # SortingCountAlgorithm.cpp:216-217): -max-memory/-max-disk size the

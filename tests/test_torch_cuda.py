@@ -1,6 +1,6 @@
 """gatb_core_tpu_torch on a CUDA card: each kernel against its plain
-PyTorch version (bit for bit), and a count on the card against the same
-count on the CPU and the dict ground truth.
+PyTorch version (bit for bit), and a count and a graph build on the card
+against the same on the CPU and the dict ground truth.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor gatb_core_tpu, so it also runs where JAX is not
@@ -16,6 +16,7 @@ import torch
 from gatb_core_tpu_torch import BankStrings, count_kmers
 from gatb_core_tpu_torch.kmer.model import count_kmers_py
 from gatb_core_tpu_torch.ops import limb_sort as S
+from gatb_core_tpu_torch.ops import rank_search as R
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +164,81 @@ def test_lsm_count_and_fetches_on_card_match_cpu(cuda):
     for got in (packed, streamed):
         assert np.array_equal(got[0], whole[0])
         assert np.array_equal(got[1], whole[1])
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("n,cap", [(0, 4), (1, 1), (1000, 1024),
+                                   (70_000, 1 << 17)])
+def test_rank_rows_matches_plain(cuda, w, n, cap):
+    """Templated widths and the generic one (5), an empty table, a padded
+    tail; queries present, absent, duplicated, the padding row, none."""
+    g = torch.Generator().manual_seed(w * 1000 + n)
+    rows = torch.randint(-2**31, 2**31 - 1, (w, max(n, 1)),
+                         dtype=torch.int32, generator=g)
+    rows = S.sort_u32_limbs_plain(rows).T[:n]
+    if n > 1:
+        keep = torch.ones(n, dtype=torch.bool)
+        keep[1:] = (rows[1:] != rows[:-1]).any(dim=1)
+        rows = rows[keep]
+    live = rows.shape[0]
+    table = torch.full((cap, w), -1, dtype=torch.int32)
+    table[:live] = rows
+    queries = torch.randint(-2**31, 2**31 - 1, (5000, w), dtype=torch.int32,
+                            generator=g)
+    if live:
+        queries[::2] = table[torch.randint(0, live, (2500,), generator=g)]
+    queries[7] = -1
+    queries[9] = 0
+    table, queries = table.to(cuda), queries.to(cuda)
+    before = R.launches["rank_rows"]
+    for q in (queries, queries[:1].contiguous(), queries[:0].contiguous()):
+        rank, found = R.rank_rows(table, q, live)
+        ref_rank, ref_found = R.rank_rows_plain(table, q, live)
+        assert torch.equal(rank, ref_rank) and torch.equal(found, ref_found)
+        assert rank.dtype == torch.int32 and found.dtype == torch.bool
+    assert R.launches["rank_rows"] == before + 2      # none for no query
+    assert (w, cap, live, 5000) in R.launch_shapes["rank_rows"]
+    rank, found = R.rank_rows(table, table[:live].contiguous(), live)
+    assert found.all() and torch.equal(
+        rank, torch.arange(live, dtype=torch.int32, device=cuda))
+    # storage off 16-byte alignment
+    flat = torch.empty(table.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = flat[1:].view_as(table)
+    shifted.copy_(table)
+    rank, _ = R.rank_rows(shifted, queries, live)
+    assert torch.equal(rank, R.rank_rows_plain(table, queries, live)[0])
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_graph_on_card_matches_cpu(cuda, k):
+    """Bloom, debloom, adjacency and branching on the card (kernels)
+    against the same build on the CPU (plain versions)."""
+    from gatb_core_tpu_torch import Graph
+
+    rng = np.random.default_rng(k)
+    genome = "".join(rng.choice(list("ACGT"), size=6000))
+    reads = [genome[i:i + 120] for i in range(0, 5880, 7)]
+    kw = dict(kmer_size=k, abundance_min=2, batch_reads=64,
+              superbatch_rows=1 << 16, mphf_kind="none")
+    for name in R.launches:
+        R.launches[name] = 0
+    a = Graph.create(BankStrings(*reads), device="cuda", **kw)
+    assert R.launches["rank_rows"] >= 2
+    b = Graph.create(BankStrings(*reads), device="cpu", **kw)
+    assert np.array_equal(a.solid_limbs, b.solid_limbs)
+    assert np.array_equal(a._adjacency, b._adjacency)
+    assert np.array_equal(a.branching_nodes(), b.branching_nodes())
+    assert a.checksum_branching() == b.checksum_branching()
+    da, db = a._debloom, b._debloom
+    assert da.bloom.words.is_cuda and not db.bloom.words.is_cuda
+    assert np.array_equal(da.bloom.to_numpy(), db.bloom.to_numpy())
+    assert np.array_equal(da.cfp, db.cfp) and da.info == db.info
+    assert np.array_equal(da.cascade.t4, db.cascade.t4)
+    for x, y in zip(da.cascade.blooms, db.cascade.blooms):
+        assert np.array_equal(x.to_numpy(), y.to_numpy())
+    q = np.concatenate([a.solid_limbs[:500], da.cfp[:500]])
+    for mode in ("exact", "bloom_cfp"):
+        assert np.array_equal(a.contains(q, mode=mode),
+                              b.contains(q, mode=mode))
+    assert np.array_equal(a.node_index(q), b.node_index(q))
+    assert np.array_equal(a.adjacency_masks(q), b.adjacency_masks(q))

@@ -1,9 +1,11 @@
-"""gatb_core_tpu_torch counting-only dbgh5 against the JAX package's: the
-two tools count a bank the test writes and their ``.h5`` files must hold
-the same datasets (``/dsk/solid``, the histogram, ``/minimizers``) and the
-same configuration and state attributes (times and paths left out), at
-k=31 and k=63; the KFF files must be equal byte for byte. The port runs on
-the CPU here (``device="cpu"`` handed to ``Graph.create``).
+"""gatb_core_tpu_torch dbgh5 against the JAX package's: the two tools build
+the graph of a bank the test writes and their ``.h5`` files must hold the
+same datasets (``/dsk/solid``, the histogram, ``/minimizers``, and with the
+postsolid stages on ``/bloom``, ``/debloom``, ``/adjacency``,
+``/branching``) and the same configuration and state attributes (times and
+paths left out), at k=31 and k=63; the KFF files must be equal byte for
+byte. The port runs on the CPU here (``device="cpu"`` handed to
+``Graph.create``).
 """
 
 import os
@@ -12,6 +14,7 @@ import h5py
 import numpy as np
 import pytest
 
+from gatb_core_tpu.storage import hdf5 as jh5
 from gatb_core_tpu.tools import dbgh5 as jdbgh5
 from gatb_core_tpu_torch.debruijn.graph import Graph
 from gatb_core_tpu_torch.storage import hdf5 as th5
@@ -104,20 +107,103 @@ def test_dbgh5_h5_and_kff_equal_jax(k, bank, tmp_path, on_cpu,
         assert a.read() == b.read()
 
 
+def _same_files(a, b):
+    j, t = _contents(a), _contents(b)
+    assert sorted(j) == sorted(t)
+    for key in j:
+        if key.endswith("@"):
+            assert j[key] == t[key], key
+        else:
+            assert j[key].dtype == t[key].dtype, key
+            assert np.array_equal(j[key], t[key]), key
+    return j
+
+
+def _bloom_fields(b):
+    """Of either package's BloomFilter."""
+    return (b.to_numpy().tolist(), b.size_bits, b.n_hash, b.user_seed,
+            b.kind, b.kmer_size)
+
+
+@pytest.mark.parametrize("k,bloom,debloom", [
+    (31, "neighbor", "cascading"), (63, "neighbor", "cascading"),
+    (31, "neighbor", "original"), (31, "cache", "cascading"),
+    (31, "cache", "original"), (31, "basic", "cascading"),
+    (31, "basic", "original")])
+def test_dbgh5_postsolid_h5_equal_jax(k, bloom, debloom, bank, tmp_path,
+                                      on_cpu, monkeypatch):
+    """``-mphf none`` and otherwise the flags given (the first two cases
+    are the tool's defaults): every group of the two files equal, and each
+    package's loaders read the other's file."""
+    monkeypatch.chdir(tmp_path)
+    flags = ["-in", bank, "-kmer-size", str(k), "-abundance-min", "3",
+             "-verbose", "0", "-mphf", "none"] + SMALL
+    if (bloom, debloom) != ("neighbor", "cascading"):
+        flags += ["-bloom", bloom, "-debloom", debloom]
+    assert jdbgh5.main(flags + ["-out", "jax.h5"]) == 0
+    assert tdbgh5.main(flags + ["-out", "port.h5"]) == 0
+    j = _same_files("jax.h5", "port.h5")
+    assert {"bloom/bloom", "debloom/cfp", "debloom/cfp_all",
+            "adjacency/masks", "branching/nodes"} <= set(j)
+    assert j["bloom/bloom"].dtype == np.uint32
+    assert j["bloom/@"]["kind"] == bloom and j["debloom/@"]["nb_cfp"] > 0
+    assert j["debloom/@"]["kind"] == debloom
+    assert ("debloom/cascading/t4" in j) == (debloom == "cascading")
+    assert j["adjacency/masks"].dtype == np.uint8
+    assert {"nb_branching", "checksum_branching"} <= set(j["branching/@"])
+    w = (2 * k + 31) // 32
+    for path in ("jax.h5", "port.h5"):
+        with th5.Storage(path, "r") as st:
+            for bit in (th5.STATE_BLOOM_DONE, th5.STATE_DEBLOOM_DONE,
+                        th5.STATE_BRANCHING_DONE, th5.STATE_ADJACENCY_DONE):
+                assert st.check_state(bit)
+            assert not st.check_state(th5.STATE_MPHF_DONE)
+            tb = th5.load_bloom(st, device="cpu")
+            tc = th5.load_debloom(st, w)
+            groups = [th5.load_bloom_group(
+                st.group("debloom").group("cascading").group(f"bloom{i}"),
+                device="cpu") for i in (2, 3, 4)] \
+                if debloom == "cascading" else []
+        with jh5.Storage(path, "r") as st:
+            jb = jh5.load_bloom(st)
+            jc = jh5.load_debloom(st, w)
+            jgroups = [jh5.load_bloom_group(
+                st.group("debloom").group("cascading").group(f"bloom{i}"))
+                for i in (2, 3, 4)] if debloom == "cascading" else []
+        assert tb.words.device.type == "cpu"
+        assert _bloom_fields(tb) == _bloom_fields(jb)
+        assert tc.dtype == jc.dtype and np.array_equal(tc, jc)
+        assert len(tc) == j["debloom/@"]["nb_cfp"]
+        assert [_bloom_fields(b) for b in groups] == \
+            [_bloom_fields(b) for b in jgroups]
+
+
 def test_dbgh5_default_stages_raise_until_ported(bank, tmp_path, on_cpu,
                                                  monkeypatch):
-    """The reference's flag defaults ask for stages the port does not have
-    yet: the run ends in NotImplementedError naming the stage, never in a
-    silent skip."""
+    """The reference's flag defaults ask for a stage the port does not have
+    yet, the MPHF: the run ends in NotImplementedError naming the stage,
+    never in a silent skip. With ``-mphf none`` the defaults run."""
     monkeypatch.chdir(tmp_path)
     base = ["-in", bank, "-kmer-size", "31", "-verbose", "0", "-out",
             "x.h5"] + SMALL
     with pytest.raises(NotImplementedError, match="mphf"):
         tdbgh5.main(base)
-    with pytest.raises(NotImplementedError, match="bloom"):
-        tdbgh5.main(base + ["-mphf", "none"])
-    with pytest.raises(NotImplementedError, match="branching"):
-        tdbgh5.main(base + ["-mphf", "none", "-bloom", "none"])
+    with pytest.raises(NotImplementedError, match="mphf"):
+        tdbgh5.main(base + ["-mphf", "emphf", "-bloom", "none"])
+    assert tdbgh5.main(base + ["-mphf", "none", "-check-dump",
+                               "x.props"]) == 0
+    with open("x.props") as f:
+        props = dict(line.split(None, 1) for line in f if " " in line)
+    assert int(props["nb_branching"]) > 0 and props["checksum_branching"]
+    assert "postsolid_time" in props and int(props["nb_cfp"]) > 0
+    # -check compares the branching keys too
+    assert tdbgh5.main(base + ["-mphf", "none", "-check", "x.props"]) == 0
+    with open("x.props") as f:
+        lines = [("nb_branching 1\n" if line.startswith("nb_branching ")
+                  else line) for line in f]
+    with open("y.props", "w") as f:
+        f.writelines(lines)
+    assert tdbgh5.main(base + ["-mphf", "none", "-check", "y.props"]) == 1
 
 
 def test_dbgh5_check_dump_and_tool_contract(bank, tmp_path, on_cpu,
