@@ -81,13 +81,40 @@ numpy ground truth computed here:
      count's solid table (29,999,950 nodes): stage times, peak device
      memory, masks of 2^20 sampled nodes against numpy, then rank_rows
      against its plain version on every sweep chunk's queries.
+ 10. MPHF: ``build_postsolid`` with the default ``mphf_kind`` on each of
+     the three phase-9 graphs, then the BooPHF's code and ``node_index``
+     (the rank search) of every node (2^20 sampled on the stress table)
+     equal to its rank, node_index -1 on the cFP set and on random k-mers
+     numpy finds outside the table;
+     ``perm`` a permutation, the fallback keys the keys no level placed;
+     on the bench and k=63 tables every array equal to a build on the CPU;
+     stage time, peak device memory, and 2^20 queries through the MPHF
+     beside rank_rows on the same queries (CUDA events).
+ 11. unitigs: ``Graph.unitig_graph()`` and ``Graph.contigs()`` on the same
+     three graphs, checked from the sequences alone with numpy (uint64
+     k-mer values at k=31, Python integers at k=63): the canonical
+     windows of the unitigs, in order, are every node once and are the
+     nodes at node_pos 0..len-1 of a second build's node maps; internal
+     k-mers have in- and out-degree 1 in their orientation (all, or a
+     sample of 2^20 / 2^14); every end is maximal (it branches, is a tip,
+     or closes a cycle); the float32 means equal numpy's float64 means
+     cast; contigs are the unitigs of at least 2k+1 bases; on the bench
+     and k=63 tables the whole unitig graph (sequences, means, links, GFA
+     text) equals a build on the CPU; stage times, peak device memory and
+     the steps of ``build_unitigs`` timed by its own CUDA events (candidate
+     ranks, successor rule, cycle cut, list ranking, node maps, emit) with
+     the doubling rounds.
 
-Phases 2-4 and 6-9 each run with the kernels' launch counters set to 0
+Phases 2-4 and 6-11 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels in the counts;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
-limb-sort kernels in each part of phase 9). The stress counts also
-log the peak of device memory allocated during the count.
+limb-sort kernels in each part of phase 9; rank_rows in each part of
+phases 10 and 11, the MPHF's fallback search and the unitig candidate
+ranks). The stress counts also log the peak of device memory allocated
+during the count. h5py is not installed beside the card, so the MPHF's
+``.h5`` datasets, ``Graph.load`` and ``dbginfo`` are held by the CPU tests
+only.
 Exits non-zero on any failure (and at once without a CUDA device). The
 line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is the JSON result.
@@ -330,12 +357,17 @@ _RC_BYTE = bytes(
     for b in range(256))
 
 
+def revcomp_py(v: int, k: int) -> int:
+    """Reverse complement of one k-mer held as a Python int (any k)."""
+    nbytes = (2 * k + 7) // 8
+    return int.from_bytes(v.to_bytes(nbytes, "little").translate(_RC_BYTE),
+                          "big") >> (8 * nbytes - 2 * k)
+
+
 def neighbors_py(v: int, k: int) -> list:
     """The 8 canonical neighbour candidates of one k-mer as Python ints
     (any k)."""
-    nbytes = (2 * k + 7) // 8
-    r = int.from_bytes(v.to_bytes(nbytes, "little").translate(_RC_BYTE),
-                       "big") >> (8 * nbytes - 2 * k)
+    r = revcomp_py(v, k)
     mask = (1 << (2 * k)) - 1
     top = 2 * k - 2
     out = [min(((v << 2) | nt) & mask, (r >> 2) | ((nt ^ 2) << top))
@@ -1418,7 +1450,7 @@ def phase_postsolid_bench(tally, S, bench_path: str, truth, card: str):
         f"{info['checksum_branching']}, peak device memory {peak:.1f} MiB; "
         f"{card}; the same debloom stage on the CPU {cpu_s:.3f} s; masks, "
         f"branching, cFP and both membership modes equal to numpy")
-    return got
+    return got, graph
 
 
 def phase_postsolid_k63(tally, S, k63_path: str, card: str):
@@ -1482,7 +1514,7 @@ def phase_postsolid_k63(tally, S, k63_path: str, card: str):
         f"{card}; the same debloom stage on the CPU {cpu_s:.3f} s; masks of "
         f"2^16 nodes equal to Python integers, cFP and both membership "
         f"modes consistent on all {8 * n} candidates")
-    return got
+    return got, graph
 
 
 def postsolid_breakdown(torch, R, graph, nodes, card: str) -> None:
@@ -1604,7 +1636,363 @@ def phase_postsolid_stress(tally, S, R, stress_fold, card: str):
     log(f"phase 9c: rank_rows against its plain version on {chunks} chunks "
         f"of up to {8 * step} queries: max |kernel - plain| {err}")
     check(err == 0, "9c: rank_rows disagrees with its plain version")
-    return got, err
+    return got, err, graph, pick
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: the MPHF and unitig compaction on the three postsolid tables
+# ---------------------------------------------------------------------------
+
+_CODE = np.zeros(256, np.uint8)
+_CODE[np.frombuffer(b"CTG", np.uint8)] = (1, 2, 3)
+
+
+def table_hi_lo(rows: np.ndarray):
+    """(N, W) uint32 limb rows (W <= 4) -> the value as (hi, lo) uint64."""
+    r = np.zeros((len(rows), 4), np.uint64)
+    r[:, 4 - rows.shape[1]:] = rows
+    s = np.uint64(32)
+    return (r[:, 0] << s) | r[:, 1], (r[:, 2] << s) | r[:, 3]
+
+
+def window_values(codes: np.ndarray, k: int):
+    """Every k-mer window of a (L,) array of 2-bit codes (k <= 64): the
+    canonical value as (hi, lo) uint64 and whether the forward strand is
+    the canonical one (hi stays 0 for k <= 32)."""
+    P = len(codes) - k + 1
+    c = codes.astype(np.uint64)
+    fl, rl = np.zeros(P, np.uint64), np.zeros(P, np.uint64)
+    fh, rh = (np.zeros(P, np.uint64), np.zeros(P, np.uint64)) if k > 32 \
+        else (fl[:0], rl[:0])
+    for t in range(k):
+        win = c[t:t + P]
+        pos = 2 * (k - 1 - t)
+        if pos >= 64:
+            fh |= win << np.uint64(pos - 64)
+        else:
+            fl |= win << np.uint64(pos)
+        comp = win ^ np.uint64(2)
+        if 2 * t >= 64:
+            rh |= comp << np.uint64(2 * t - 64)
+        else:
+            rl |= comp << np.uint64(2 * t)
+    if k <= 32:
+        fwd = fl < rl
+        return np.zeros(P, np.uint64), np.where(fwd, fl, rl), fwd
+    fwd = (fh < rh) | ((fh == rh) & (fl < rl))
+    return np.where(fwd, fh, rh), np.where(fwd, fl, rl), fwd
+
+
+def absent_rows(graph, k: int, n_rand: int = 1 << 16) -> np.ndarray:
+    """The cFP set and random k-mers numpy finds outside the table."""
+    rng = np.random.default_rng(k + 100)
+    w = graph.solid_limbs.shape[1]
+    rows = rng.integers(0, 2**32, size=(2 * n_rand, w),
+                        dtype=np.uint64).astype(np.uint32)
+    rows[:, 0] &= np.uint32((1 << (2 * k - 32 * (w - 1))) - 1)
+    if k <= 32:
+        v = limbs_to_u64(rows)
+        nodes = limbs_to_u64(graph.solid_limbs)
+        out = ~member_u64(nodes, np.minimum(v, revcomp_u64(v, k)))
+    else:
+        solid = set(map(bytes, graph.solid_limbs))
+        out = np.fromiter((bytes(r) not in solid for r in rows), bool,
+                          len(rows))
+    rows = rows[out][:n_rand]
+    return np.concatenate([graph._debloom.cfp, rows])
+
+
+def phase_mphf(tally, S, R, name: str, graph, card: str, sample=None):
+    """Phase 10: ``build_postsolid`` with the default ``mphf_kind`` on a
+    phase-9 graph (Bloom, debloom and branching already built), then the
+    BooPHF's rank and node_index (the rank search) of every node (2^20
+    sampled on the stress table), node_index of absent k-mers. Returns the
+    launch counts."""
+    import torch
+
+    from gatb_core_tpu_torch.collections.boophf import BooPHF, _popcount32
+    from gatb_core_tpu_torch.convert import boophf_to_numpy, u32_to_torch
+    from gatb_core_tpu_torch.kmer.debloom import rows_to_device
+
+    k, n = graph._k, graph.nb_nodes
+    pick = np.arange(n) if sample is None else sample
+    present = graph.solid_limbs[pick]
+    absent = absent_rows(graph, k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+
+    def run():
+        graph.build_postsolid(bloom_kind="none", build_branching=False)
+        torch.cuda.synchronize()
+        by_mphf = graph._mphf.rank(rows_to_device(present, "cuda"))
+        return (by_mphf.cpu().numpy(), graph.node_index(present),
+                graph.node_index(absent))
+
+    (by_mphf, idx, idx_absent), got = tally.counted(
+        S, f"phase 10 {name} MPHF", run, path=("rank_rows",))
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    m = graph._mphf
+    check(isinstance(m, BooPHF) and m.bits.is_cuda, f"10 {name}: no MPHF")
+    check(np.array_equal(by_mphf, pick) and np.array_equal(idx, pick),
+          f"10 {name}: the MPHF code or node_index of a node is not its "
+          "rank")
+    check(bool((idx_absent == -1).all()),
+          f"10 {name}: an absent k-mer got an index")
+    check(bool((torch.sort(m.perm).values == torch.arange(
+        n, device="cuda", dtype=torch.int32)).all()),
+        f"10 {name}: perm is not a permutation")
+    set_bits = int(_popcount32(m.bits).sum())
+    check(m.fallback_keys.shape[0] == n - set_bits,
+          f"10 {name}: fallback keys are not the keys no level placed")
+    cpu_s = None
+    if sample is None:
+        t1 = time.time()
+        ref = BooPHF.build(u32_to_torch(graph.solid_limbs, "cpu"), n)
+        cpu_s = time.time() - t1
+        a, b = boophf_to_numpy(m), boophf_to_numpy(ref)
+        check(all(np.array_equal(a[key], b[key]) for key in a),
+              f"10 {name}: the MPHF differs from the CPU build")
+    # one query batch of 2^20 nodes: the MPHF beside rank_rows
+    q = rows_to_device(graph.solid_limbs[np.random.default_rng(1).integers(
+        0, n, 1 << 20)], "cuda")
+    table = graph._padded_table()
+    mphf_ms, a = time_ms(torch, m.rank, q, warm=1, reps=5, fresh=False)
+    rank_ms, (b, _) = time_ms(torch, lambda y: R.rank_rows(table, y, n), q,
+                              warm=1, reps=5, fresh=False)
+    check(bool((a == b).all()), f"10 {name}: MPHF and rank_rows disagree")
+    log(f"phase 10 {name} MPHF: {n} keys, stage "
+        f"{graph.info['postsolid_time.mphf']:.3f} s ({wall:.3f} s wall with "
+        f"the queries), levels {m.sizes}, fallback {m.fallback_keys.shape[0]}"
+        f" keys; peak device memory {peak:.1f} MiB; 2^20 queries: MPHF rank "
+        f"{mphf_ms:.4f} ms, rank_rows {rank_ms:.4f} ms; "
+        f"{len(pick)} nodes and {len(absent)} absent k-mers (cFP and random)"
+        f" answered right; "
+        + ("" if cpu_s is None
+           else f"equal to the CPU build ({cpu_s:.3f} s); ")
+        + card)
+    return got
+
+
+def oriented_degrees_py(values: list, solid: set, k: int):
+    """(out, in) degree of oriented k-mers given as Python ints."""
+    mask = (1 << (2 * k)) - 1
+    top = 2 * (k - 1)
+
+    def canon(v):
+        return min(v, revcomp_py(v, k))
+
+    out = [sum(canon(((v << 2) | nt) & mask) in solid for nt in range(4))
+           for v in values]
+    inn = [sum(canon((v >> 2) | (nt << top)) in solid for nt in range(4))
+           for v in values]
+    return out, inn
+
+
+def oriented_degrees_u64(v: np.ndarray, nodes: np.ndarray, k: int):
+    """(out, in) degree of oriented k-mers (k <= 31) held as uint64."""
+    u = np.uint64
+    mask = u((1 << (2 * k)) - 1)
+    top = u(2 * k - 2)
+
+    def deg(cands):
+        return sum(member_u64(nodes, np.minimum(c, revcomp_u64(c, k)))
+                   .astype(np.int64) for c in cands)
+
+    return (deg([((v << u(2)) | u(nt)) & mask for nt in range(4)]),
+            deg([(v >> u(2)) | (u(nt) << top) for nt in range(4)]))
+
+
+def check_ends(name: str, heads, tails, degrees, succ_of, rc) -> int:
+    """Each unitig end is maximal: its oriented out-degree is not 1, or its
+    one successor has in-degree other than 1, or the successor is the
+    unitig's own head (a cycle) or the tail's twin. ``heads``/``tails``
+    are arrays of the first and last oriented k-mers of every unitig
+    (uint64, or Python integers in an object array); run it on the
+    unitigs and on their reverse complements. Returns the ends that stop
+    at a branch or a tip."""
+    out_t, _ = degrees(tails)
+    succ = succ_of(tails)
+    _, in_s = degrees(succ)
+    stops = (np.asarray(out_t) != 1) | (np.asarray(in_s) != 1)
+    closes = (succ == heads) | (succ == rc(tails))
+    check(bool(np.all(stops | closes)),
+          f"11 {name}: a unitig end could be extended")
+    return int(stops.sum())
+
+
+def phase_unitigs(tally, S, name: str, graph, tmp: str, card: str):
+    """Phase 11: Graph.unitig_graph() and Graph.contigs() on a phase-9
+    graph, checked against numpy from the sequences alone, and on the bench
+    and k=63 tables against the same build on the CPU. Returns the launch
+    counts."""
+    import torch
+
+    from gatb_core_tpu_torch.debruijn import unitigs as U
+    from gatb_core_tpu_torch.debruijn.graph_unitigs import build_unitig_graph
+
+    k, n = graph._k, graph.nb_nodes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    stage = {}
+
+    def run():
+        ug = graph.unitig_graph()
+        stage["unitigs"] = graph.info["postsolid_time.unitigs"]
+        t1 = time.time()
+        contigs = graph.contigs()
+        stage["contigs"] = time.time() - t1
+        return ug, contigs
+
+    (ug, (contig_seqs, contig_means)), got = tally.counted(
+        S, f"phase 11 {name} unitigs", run, path=("rank_rows",))
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    t_check = time.time()
+    seqs = list(ug.sequences)
+    nu = len(seqs)
+    kc = np.asarray(ug.kmer_counts, np.int64)
+    lens = np.asarray([len(x) for x in seqs], np.int64)
+    check(nu > 0 and np.array_equal(lens, kc + k - 1)
+          and int(kc.sum()) == n, f"11 {name}: k-mer counts")
+    # every window of every unitig, canonical, in order
+    codes = _CODE[np.frombuffer("".join(seqs).encode(), np.uint8)]
+    hi, lo, fwd = window_values(codes, k)
+    starts_u = np.zeros(nu + 1, np.int64)
+    starts_u[1:] = np.cumsum(lens)
+    first_w = np.zeros(nu + 1, np.int64)
+    first_w[1:] = np.cumsum(kc)
+    pos = np.arange(n) - np.repeat(first_w[:-1], kc)
+    starts = np.repeat(starts_u[:-1], kc) + pos
+    hi, lo, fwd = hi[starts], lo[starts], fwd[starts]
+    del codes
+    # every node in exactly one unitig: the windows sorted are the table
+    order = np.argsort(lo) if k <= 32 else np.lexsort((lo, hi))
+    thi, tlo = table_hi_lo(graph.solid_limbs)
+    check(np.array_equal(hi[order], thi) and np.array_equal(lo[order], tlo),
+          f"11 {name}: the unitigs' k-mers are not the nodes, each once")
+    node_of = np.empty(n, np.int64)
+    node_of[order] = np.arange(n)
+    del order, thi
+    # the node maps of the same build: the nodes at node_pos 0..len-1;
+    # this second build times its steps (the first warmed them up)
+    steps = {}
+    us = U.build_unitigs(graph._padded_table(), graph.solid_counts,
+                         graph._adjacency, k, device=graph.device,
+                         timings=steps)
+    uid = np.repeat(np.arange(nu), kc)
+    check(list(us.sequences) == seqs
+          and np.array_equal(us.node_unitig[node_of], uid)
+          and np.array_equal(us.node_pos[node_of], pos)
+          and np.array_equal(us.node_strand[node_of], (~fwd).astype(np.int8)),
+          f"11 {name}: node_unitig / node_pos / node_strand differ from the "
+          f"sequences")
+    del us
+    mean = (np.bincount(uid, weights=graph.solid_counts[node_of]
+                        .astype(np.float64), minlength=nu) / kc) \
+        .astype(np.float32)
+    check(mean.tobytes() == np.asarray(ug.mean_abundance).tobytes(),
+          f"11 {name}: mean_abundance differs from numpy")
+    # degrees: internal k-mers 1 in and 1 out in their orientation; ends
+    # maximal (k=31 on uint64 values, k=63 on Python integers)
+    internal = np.nonzero((pos > 0) & (pos < kc[uid] - 1))[0]
+    most = 1 << 18 if k <= 32 else 1 << 14
+    if len(internal) > most:
+        internal = np.random.default_rng(11).choice(internal, most,
+                                                    replace=False)
+    need = np.concatenate([internal, first_w[:-1], first_w[1:] - 1])
+    if k <= 32:
+        nodes = tlo
+        oriented = np.where(fwd[need], lo[need], revcomp_u64(lo[need], k))
+        mask = np.uint64((1 << (2 * k)) - 1)
+
+        def degrees(v):
+            return oriented_degrees_u64(v, nodes, k)
+
+        def succ_of(v):
+            # the successor where there is exactly one (else any value)
+            out = np.zeros_like(v)
+            for nt in range(4):
+                c = ((v << np.uint64(2)) | np.uint64(nt)) & mask
+                hit = member_u64(nodes, np.minimum(c, revcomp_u64(c, k)))
+                out = np.where(hit, c, out)
+            return out
+
+        def rc(v):
+            return revcomp_u64(v, k)
+    else:
+        from gatb_core_tpu_torch.ops.kmer_ops import kmers_to_py
+
+        solid = set(kmers_to_py(graph.solid_limbs))
+        oriented = np.array(
+            [((int(h) << 64) | int(x)) if f
+             else revcomp_py((int(h) << 64) | int(x), k)
+             for h, x, f in zip(hi[need], lo[need], fwd[need])],
+            dtype=object)
+        mask = (1 << (2 * k)) - 1
+
+        def degrees(v):
+            return oriented_degrees_py(list(v), solid, k)
+
+        def succ_of(vals):
+            out = np.zeros(len(vals), dtype=object)
+            for i, v in enumerate(vals):
+                for nt in range(4):
+                    c = ((v << 2) | nt) & mask
+                    if min(c, revcomp_py(c, k)) in solid:
+                        out[i] = c
+            return out
+
+        def rc(vals):
+            return np.array([revcomp_py(v, k) for v in vals], dtype=object)
+    m = len(internal)
+    oi, ii = degrees(oriented[:m])
+    heads, tails = oriented[m:m + nu], oriented[m + nu:]
+    check(bool(np.all(np.asarray(oi) == 1) and np.all(np.asarray(ii) == 1)),
+          f"11 {name}: an internal k-mer has in- or out-degree other than 1")
+    stops = check_ends(name, heads, tails, degrees, succ_of, rc) \
+        + check_ends(name, rc(tails), rc(heads), degrees, succ_of, rc)
+    keep = lens >= 2 * k + 1
+    check(contig_seqs == [x for x, y in zip(seqs, keep) if y]
+          and contig_means.tobytes() == mean[keep].tobytes(),
+          f"11 {name}: contigs are not the long unitigs")
+    t_check = time.time() - t_check
+    cpu_s = None
+    if name != "stress":
+        t1 = time.time()
+        ref = build_unitig_graph(graph.solid_limbs, graph.solid_counts,
+                                 graph._adjacency, k, device="cpu")
+        cpu_s = time.time() - t1
+        check(list(ref.sequences) == seqs
+              and ref.mean_abundance.tobytes() == ug.mean_abundance.tobytes()
+              and np.array_equal(ref.kmer_counts, ug.kmer_counts)
+              and np.array_equal(ref.link_offsets, ug.link_offsets)
+              and np.array_equal(ref.link_targets, ug.link_targets),
+              f"11 {name}: the unitig graph differs from the CPU build")
+        texts = []
+        for g in (ug, ref):
+            path = os.path.join(tmp, "u.gfa")
+            g.write_gfa(path)
+            with open(path, "rb") as f:
+                texts.append(f.read())
+            os.remove(path)
+        check(texts[0] == texts[1], f"11 {name}: GFA text differs")
+    log(f"phase 11 {name} unitigs: {n} nodes -> {nu} unitigs (longest "
+        f"{int(lens.max())} bases), {len(ug.link_targets)} links, "
+        f"{len(contig_seqs)} contigs; unitig_graph stage "
+        f"{stage['unitigs']:.3f} s, contigs {stage['contigs']:.3f} s "
+        f"({wall:.3f} s wall), peak device memory {peak:.1f} MiB; "
+        f"build_unitigs steps (CUDA events, ms): "
+        + ", ".join(f"{key} {v:.3f}" for key, v in steps.items())
+        + f" ({U._rounds(2 * n)} doubling rounds over {2 * n} oriented "
+        f"nodes, each loop); numpy checks {t_check:.3f} s ({stops} ends at "
+        f"a branch or tip, {len(internal)} internal k-mers of degree 1/1)"
+        + ("" if cpu_s is None else
+           f"; equal to the CPU build ({cpu_s:.3f} s), GFA text too")
+        + f"; {card}")
+    return got
 
 
 def device_events(torch, prof):
@@ -1730,14 +2118,25 @@ def main() -> int:
         phase_multibank(tally, tmp, S, reads)
         phase_dbgh5(tally, tmp, S, bench_path, truth)
         phase_bitonic(tally, S, torch, truth)
-        graph_got = {"bench": phase_postsolid_bench(tally, S, bench_path,
-                                                    truth, card),
-                     "k=63": phase_postsolid_k63(tally, S, k63_path, card)}
-        graph_got["stress"], err_g = phase_postsolid_stress(
-            tally, S, R, stress_fold, card)
+        graph_got, graphs = {}, {}
+        graph_got["bench"], graphs["bench"] = phase_postsolid_bench(
+            tally, S, bench_path, truth, card)
+        graph_got["k=63"], graphs["k=63"] = phase_postsolid_k63(
+            tally, S, k63_path, card)
+        graph_got["stress"], err_g, graphs["stress"], pick = \
+            phase_postsolid_stress(tally, S, R, stress_fold, card)
         del stress_fold
+        mphf_got = {name: phase_mphf(tally, S, R, name, g, card,
+                                     sample=pick if name == "stress"
+                                     else None)
+                    for name, g in graphs.items()}
+        unitig_got = {name: phase_unitigs(tally, S, name, g, tmp, card)
+                      for name, g in graphs.items()}
+        del graphs
     log(f"launches in the stress count: fold {fold_got}, LSM {lsm_got}")
     log(f"launches in the postsolid builds: {graph_got}")
+    log(f"launches in the MPHF builds and queries: {mphf_got}")
+    log(f"launches in the unitig builds: {unitig_got}")
     err_s = phase_shapes(torch, S, R, tally.shapes)
     err["rank_rows"] = max(err["rank_rows"], err_g)
     for name in err:

@@ -3,15 +3,17 @@
 A port of ``gatb_core_tpu`` (JAX on a TPU) to one NVIDIA H100. It keeps
 the JAX package's module layout and function names; the JAX package stays
 the reference it is tested against. The port covers counting (fold path
-and LSM merge chain, multibank) and the graph build of dbgh5 without its
-MPHF stage (Bloom, debloom, adjacency, branching, the node queries):
+and LSM merge chain, multibank), the whole graph build of dbgh5 (MPHF,
+Bloom, debloom, adjacency, branching, the node queries), ``Graph.load``
+and unitig compaction:
 
     from gatb_core_tpu_torch import Graph, count_kmers
     res = count_kmers("reads.fa", kmer_size=31, abundance_min=3)
-    graph = Graph.create("reads.fa", kmer_size=31, mphf_kind="none")
+    graph = Graph.create("reads.fa", kmer_size=31)
+    unitigs = graph.unitig_graph()
 
-    python -m gatb_core_tpu_torch.tools.dbgh5 -in reads.fa -out graph.h5 \
-        -mphf none
+    python -m gatb_core_tpu_torch.tools.dbgh5 -in reads.fa -out graph.h5
+    python -m gatb_core_tpu_torch.tools.dbginfo -in graph.h5
 
 Tensors live on ``device="cuda"`` by default; the Pallas sort kernels of
 the JAX package are hand-written CUDA kernels here (ops/limb_sort.py), as

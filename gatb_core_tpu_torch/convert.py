@@ -14,7 +14,9 @@ same fields on both sides.
 
 A ``BloomFilter`` has the same six fields in both packages, with ``words``
 a uint32 array there and an int32 tensor of the same bits here; a
-``DebloomResult`` and its ``CascadeCFP`` hold numpy sets and such blooms.
+``DebloomResult`` and its ``CascadeCFP`` hold numpy sets and such blooms. A
+``BooPHF`` has the same eight fields in both packages (arrays there,
+tensors of the same bits here).
 This module imports nothing of the JAX package: towards the port it reads
 any object with those fields, towards JAX it hands out the fields with
 numpy arrays (``gatb_core_tpu.collections.bloom.BloomFilter(
@@ -177,4 +179,36 @@ def debloom_to_numpy(res) -> dict:
         "cascade_blooms": None if cas is None
         else [bloom_to_numpy(b) for b in cas.blooms],
         "t4": None if cas is None else np.asarray(cas.t4, np.uint32),
+    }
+
+
+def boophf_to_torch(mphf, device="cpu"):
+    """Any BooPHF-shaped object (the JAX package's: ``bits`` uint32,
+    ``prefix`` / ``perm`` / ``fallback_ranks`` int32, ``fallback_keys``
+    (F, W) uint32, ``sizes`` / ``offsets`` tuples, ``n``) -> the port's
+    BooPHF with its tensors on ``device``."""
+    from .collections.boophf import BooPHF
+
+    def ints(a):
+        return torch.from_numpy(np.asarray(a, np.int32).copy()).to(device)
+
+    return BooPHF(tuple(int(x) for x in mphf.sizes),
+                  u32_to_torch(np.asarray(mphf.bits), device),
+                  ints(mphf.prefix),
+                  tuple(int(x) for x in mphf.offsets),
+                  u32_to_torch(np.asarray(mphf.fallback_keys), device),
+                  ints(mphf.fallback_ranks), ints(mphf.perm), int(mphf.n))
+
+
+def boophf_to_numpy(mphf) -> dict:
+    """The port's BooPHF -> its fields with numpy arrays of the JAX
+    package's dtypes."""
+    return {
+        "sizes": tuple(mphf.sizes), "offsets": tuple(mphf.offsets),
+        "bits": u32_to_numpy(mphf.bits),
+        "prefix": mphf.prefix.cpu().numpy(),
+        "perm": mphf.perm.cpu().numpy(),
+        "fallback_keys": u32_to_numpy(mphf.fallback_keys),
+        "fallback_ranks": mphf.fallback_ranks.cpu().numpy(),
+        "n": int(mphf.n),
     }

@@ -1,31 +1,35 @@
 """De Bruijn graph over the solid k-mer set (GraphTemplate equivalent).
 
 Port of gatb_core_tpu/debruijn/graph.py (reference: debruijn/impl/
-Graph.hpp:540 / Graph.cpp) without ``Graph.load``, the MPHF, ``simplify``,
-``contigs`` and ``unitig_graph``. The reference's node membership is
-(Bloom AND not-cFP), which by construction of the cFP set equals exact
-membership in the solid set for every query on the traversal path
-(neighbors of contained nodes). Here membership is exact by design: a rank
-search over the sorted solid table (collections/sortedset, the
-``rank_rows`` kernel of ops/rank_search.py), with the Bloom + cFP oracle
-as a second mode, so graph topology is identical to the reference's for
-the same solid set.
+Graph.hpp:540 / Graph.cpp) without ``simplify`` and without the two paths
+that stand on it (ROADMAP A7): ``unitig_graph`` of a graph with deleted
+nodes and ``contigs(traversal="monument")`` raise NotImplementedError.
+
+The reference's node membership is (Bloom AND not-cFP), which by
+construction of the cFP set equals exact membership in the solid set for
+every query on the traversal path (neighbors of contained nodes). Here
+membership is exact by design: a rank search over the sorted solid table
+(collections/sortedset, the ``rank_rows`` kernel of ops/rank_search.py),
+with the Bloom + cFP oracle as a second mode, so graph topology is
+identical to the reference's for the same solid set.
 
 Node identity: canonical k-mer value, represented as (W,) uint32 big-endian
 limbs. Node index (nodeMPHFIndex, Graph.hpp:924) = rank in the sorted solid
-table. Per-node arrays (abundance, state, adjacency) are indexed by it.
+table, always answered by the rank search: the MPHF stage builds and saves
+the BooPHF (whose codes are the same ranks), but its query is the slower of
+the two on the device. Per-node arrays (abundance, state, adjacency) are
+indexed by it.
 
 The build is the reference's state machine (Graph.cpp build_visitor_solid +
 build_visitor_postsolid): configuration -> counting -> [mphf -> bloom ->
 debloom -> branching], persisted stage-by-stage into HDF5 storage
-(Graph.hpp:1010-1030 state bits). The MPHF stage is not ported yet:
-``build_postsolid`` raises ``NotImplementedError`` for any ``mphf_kind``
-other than ``none``.
+(Graph.hpp:1010-1030 state bits); ``Graph.load`` resumes after the
+completed stages.
 
-The solid table, the Bloom words and the cFP sets live on ``device``
-(default ``"cuda"``; nothing falls back to the CPU). Queries take and
-return numpy arrays, as in the JAX package. There is no ``mesh`` argument
-yet.
+The solid table, the MPHF, the Bloom words and the cFP sets live on
+``device`` (default ``"cuda"``; nothing falls back to the CPU). Queries
+take and return numpy arrays, as in the JAX package. There is no ``mesh``
+argument yet.
 """
 
 from __future__ import annotations
@@ -36,12 +40,15 @@ import torch
 from ..collections.abundance import dediscretize, discretize
 from ..collections.sortedset import SortedKmerSet
 from ..kmer.counting import CountConfig, SortingCount
-from ..kmer.debloom import BloomCfpContainer, build_debloom, rows_to_device
+from ..kmer.debloom import (BloomCfpContainer, CascadeCFP, DebloomResult,
+                            build_debloom, rows_to_device)
 from ..kmer.model import canonical, kmer_to_string, string_to_kmer
 from ..ops.kmer_ops import kmers_to_py, nb_limbs, py_to_limbs
 from ..ops.neighbor_ops import neighbor_candidates
 from ..storage import hdf5 as storage_mod
-from ..storage.hdf5 import (STATE_ADJACENCY_DONE, STATE_BRANCHING_DONE,
+from ..storage.hdf5 import (STATE_ADJACENCY_DONE, STATE_BLOOM_DONE,
+                            STATE_BRANCHING_DONE, STATE_DEBLOOM_DONE,
+                            STATE_MPHF_DONE, STATE_SORTING_COUNT_DONE,
                             Storage)
 
 
@@ -92,12 +99,13 @@ class Graph:
         self.node_state = np.zeros(n, np.uint8)
         self._adjacency: np.ndarray | None = None
         self._branching: np.ndarray | None = None
+        self._mphf = None             # BooPHF of the MPHF stage
         self._debloom = None          # DebloomResult (bloom + cFP)
         self._container = None        # BloomCfpContainer membership oracle
         self.membership_mode = "exact"  # or "bloom_cfp"
 
     # ------------------------------------------------------------------
-    # creation
+    # creation / loading
     # ------------------------------------------------------------------
     @classmethod
     def create(cls, bank=None, kmer_size: int = 31, abundance_min=2,
@@ -116,8 +124,7 @@ class Graph:
         each stage persisted + state-bit-stamped, then the postsolid stages
         (build_visitor_postsolid, Graph.cpp:433-605). Kind defaults mirror
         the reference enums (misc/api/Enums.hpp:73-271); 'none' skips a
-        stage. The MPHF stage is not ported yet: ``mphf_kind`` other than
-        'none' raises (see build_postsolid)."""
+        stage."""
         cfg = CountConfig(kmer_size=kmer_size, abundance_min=abundance_min,
                           abundance_max=abundance_max,
                           minimizer_size=minimizer_size, histo_max=histo_max,
@@ -191,15 +198,19 @@ class Graph:
         times land in `info` as reference-style `time.` properties
         (the getInfo 'time' tree each Algorithm emits,
         Algorithm.cpp:56-62 pattern), also when every stage is 'none'.
-        The MPHF stage is not ported yet, so asking for it raises (it is
-        never skipped silently)."""
+        'boophf' and 'emphf' both build the BooPHF, as in the JAX
+        package."""
         from ..misc.time_info import TimeInfo
 
-        if mphf_kind != "none":
-            raise NotImplementedError(
-                f"postsolid stage 'mphf' ({mphf_kind}) is not ported yet "
-                "(ROADMAP A5.4): pass mphf_kind='none' (dbgh5: -mphf none)")
         ti = TimeInfo()
+        if mphf_kind != "none":
+            with ti.section("mphf"):
+                self.build_mphf()  # MPHFAlgorithm (Graph.cpp:488-498)
+                if self.storage is not None:
+                    storage_mod.save_mphf(self.storage, self._mphf,
+                                          self.abundance_codes,
+                                          solid_limbs=self.solid_limbs,
+                                          kmer_size=self._k)
         if bloom_kind != "none" and debloom_kind != "none":
             # BloomAlgorithm + DebloomAlgorithm (Graph.cpp:517-556)
             with ti.section("debloom"):
@@ -220,6 +231,67 @@ class Graph:
                 # BranchingAlgorithm (Graph.cpp:572-582)
                 self.branching_nodes()
         self.info.update(ti.get_properties("postsolid_time"))
+
+    @classmethod
+    def load(cls, uri: str, device="cuda") -> "Graph":
+        """Reopen a persisted graph (either package's file, or the
+        reference's layout); resumes after completed stages
+        (configure_visitor equivalent, Graph.cpp:766-802). The table, the
+        MPHF and the Bloom words go to ``device``."""
+        storage = Storage(uri, "a")
+        if not storage.check_state(STATE_SORTING_COUNT_DONE):
+            raise ValueError(f"{uri}: no completed counting stage")
+        limbs, counts = storage_mod.load_solid(storage)
+        k = storage_mod.prop_int(storage, "kmer_size")
+        graph = cls(k, limbs, counts, storage, device=device)
+        if storage.check_state(STATE_BRANCHING_DONE):
+            # a plain dataset read, as in the JAX package: at k > 32 a
+            # reference file's int128 value field does not map to numpy
+            # (ROADMAP C)
+            rec = storage.group("branching").get_dataset("nodes")
+            if rec is not None:
+                graph._branching = storage_mod.words64_to_limbs(
+                    rec["value"], graph._w)
+                graph._branching_counts = \
+                    rec["abundance"].astype(np.int32)
+        if storage.check_state(STATE_ADJACENCY_DONE):
+            adj = storage.group("adjacency").get_dataset("masks")
+            if adj is not None:
+                graph._adjacency = adj
+        if storage.check_state(STATE_MPHF_DONE):
+            # a reference-layout file (only the /dsk/mphf stream) leaves
+            # _mphf None: node_index is the rank search either way
+            mphf, abund = storage_mod.load_mphf(storage, device=device)
+            graph._mphf = mphf
+            if abund is not None:
+                graph.abundance_codes = abund
+        if storage.check_state(STATE_BLOOM_DONE) \
+                and storage.check_state(STATE_DEBLOOM_DONE):
+            bloom = storage_mod.load_bloom(storage, device)
+            cfp = storage_mod.load_debloom(storage, graph._w)
+            if bloom is not None and cfp is not None:
+                g = storage.group("debloom")
+                kind = storage_mod.prop_str(g, "kind", "original")
+                cascade = None
+                if kind == "cascading" and "cascading" in g:
+                    cg = g.group("cascading")
+                    blooms = [storage_mod.load_bloom_group(
+                        cg.group(f"bloom{i}"), device) for i in (2, 3, 4)]
+                    t4 = cg.get_dataset("t4")
+                    t4 = storage_mod.words64_to_limbs(t4, graph._w) \
+                        if t4 is not None and len(t4) else \
+                        np.zeros((0, graph._w), np.uint32)
+                    cascade = CascadeCFP(blooms, t4)
+                elif kind == "cascading" and "bloom2" in g:
+                    # reference dbgh5 layout: /debloom/bloom{2,3,4} raw
+                    # datasets with string attrs; cfp dataset holds T4
+                    blooms = [storage_mod.load_bloom_dataset(
+                        g._g[f"bloom{i}"], device) for i in (2, 3, 4)]
+                    cascade = CascadeCFP(blooms, cfp)
+                deb = DebloomResult(bloom, cfp, len(cfp), {}, kind, cascade)
+                graph._debloom = deb
+                graph._container = BloomCfpContainer(deb)
+        return graph
 
     # ------------------------------------------------------------------
     # basic accessors
@@ -278,12 +350,23 @@ class Graph:
             raise ValueError("no debloom stage: bloom_cfp unavailable")
         self.membership_mode = mode
 
+    def build_mphf(self) -> None:
+        """Build the BooPHF node index on the device (MPHFAlgorithm
+        equivalent, kmer/impl/MPHFAlgorithm.cpp:150-330), for the file and
+        for callers of ``BooPHF.rank``. Its codes are the sorted ranks
+        that node_index answers through the rank search."""
+        from ..collections.boophf import BooPHF
+
+        self._mphf = BooPHF.build(self._padded_table(), self.nb_nodes)
+
     def node_index(self, nodes) -> np.ndarray:
         """nodeMPHFIndex (Graph.hpp:924): rank in sorted table, -1 if
-        absent."""
-        batch = self._as_batch(nodes)
-        return self._set.rank(
-            rows_to_device(batch, self.device)).cpu().numpy()
+        absent. The JAX package answers through the BooPHF once built,
+        with the same result; on the device the rank search (``rank_rows``)
+        is many times faster than the BooPHF's query (``chip_smoke.py``
+        phase 10 times both), so it answers always."""
+        q = rows_to_device(self._as_batch(nodes), self.device)
+        return self._set.rank(q).cpu().numpy()
 
     def query_abundance(self, nodes) -> np.ndarray:
         """Discretized abundance (queryAbundance, Graph.hpp:900)."""
@@ -424,6 +507,53 @@ class Graph:
         if i < 0:
             return ""  # reference prints nothing for an all-zero value
         return ".".join(f"{ws[j]:x}" for j in range(i, -1, -1))
+
+    # ------------------------------------------------------------------
+    # unitigs / contigs
+    # ------------------------------------------------------------------
+    def contigs(self, min_contig_len: int | None = None,
+                traversal: str = "simple"):
+        """Every maximal simple path of the graph as one compaction over
+        unitigs (the scalable equivalent of looping gatb-core's Traversal
+        over all unmarked nodes, Traversal.cpp:68-160). Returns (sequences,
+        mean_abundances) of the unitigs of at least ``min_contig_len``
+        bases (default 2k+1, Minia's contig length filter).
+
+        traversal='monument' (bubble-tolerant assembly) stands on the
+        simplification engine, which is not ported yet (ROADMAP A7): it
+        raises NotImplementedError."""
+        if min_contig_len is None:
+            min_contig_len = 2 * self._k + 1
+        if traversal == "monument":
+            raise NotImplementedError(
+                "contigs(traversal='monument') needs the traversal and "
+                "simplification engine, not ported yet (ROADMAP A7)")
+        ug = self.unitig_graph()
+        lens = np.asarray(ug.unitig_lengths())
+        keep = lens >= min_contig_len
+        seqs = [s for s, k_ in zip(ug.sequences, keep) if k_]
+        return seqs, np.asarray(ug.mean_abundance)[keep]
+
+    def unitig_graph(self):
+        """Compact the graph into unitigs with links (GraphUnitigs /
+        UnitigsConstructionAlgorithm equivalent) on the device. A graph
+        with deleted nodes is compacted by the simplification engine in
+        the JAX package, not ported yet (ROADMAP A7): it raises
+        NotImplementedError."""
+        import time as _t
+
+        from .graph_unitigs import build_unitig_graph
+
+        if (self.node_state & 1).any():
+            raise NotImplementedError(
+                "unitig_graph of a graph with deleted nodes needs the "
+                "simplification engine, not ported yet (ROADMAP A7)")
+        t0 = _t.time()
+        adj = self.precompute_adjacency()
+        ug = build_unitig_graph(self._padded_table(), self.solid_counts,
+                                adj, self._k, device=self.device)
+        self.info["postsolid_time.unitigs"] = round(_t.time() - t0, 3)
+        return ug
 
     def get_info(self) -> dict:
         info = dict(self.info)

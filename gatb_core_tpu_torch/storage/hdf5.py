@@ -1,9 +1,9 @@
 """Persistent hierarchical storage: HDF5-backed Storage/Group tree.
 
-Port of gatb_core_tpu/storage/hdf5.py without its MPHF savers and loaders
-(host code: numpy and h5py; the Bloom loaders put the packed words on the
-device asked for). h5py is imported when a Storage is opened, so the module
-imports where h5py is not installed.
+Port of gatb_core_tpu/storage/hdf5.py (host code: numpy and h5py; the
+Bloom and MPHF loaders put their tensors on the device asked for). h5py is
+imported when a Storage is opened, so the module imports where h5py is not
+installed.
 
 Equivalent of gatb-core's storage layer (tools/storage/impl/
 Storage.hpp:166-669, StorageHDF5.hpp): a Storage is a tree of Groups holding
@@ -24,6 +24,8 @@ Graph.cpp:424-428 + CountProcessorDump.hpp:94 + CountProcessorHistogram.hpp:147)
   /debloom             datasets cfp, cfp_all; group cascading (bloom2-4, t4)
   /adjacency/masks     uint8 per node
   /branching/nodes     compound {value, abundance} of the branching nodes
+  /mphf                BooPHF levels + the discretized abundance map
+  /dsk/mphf            the reference BooPHF byte stream (up to 4M keys)
 
 Mapping note: k-mer values are stored as little-endian uint64 word arrays,
 the exact in-memory layout of the reference's LargeInt<words>
@@ -458,6 +460,89 @@ def load_debloom(storage: Storage, w32: int) -> np.ndarray | None:
     if rec.ndim == 1:
         rec = rec[:, None]
     return words64_to_limbs(rec, w32)
+
+
+REF_MPHF_STREAM_MAX_KEYS = 4_000_000
+
+
+def save_mphf(storage: Storage, mphf, abundance_codes: np.ndarray,
+              solid_limbs: np.ndarray | None = None,
+              kmer_size: int | None = None,
+              ref_stream: bool | None = None) -> None:
+    """Persist the BooPHF levels + discretized abundance map into /mphf
+    (MPHFAlgorithm persistence, kmer/impl/MPHFAlgorithm.cpp:150-330), with
+    the dtypes of the JAX package's file (bits uint32, fallback keys
+    uint32 rows, prefix / perm / fallback ranks int32). When
+    ``solid_limbs`` is given, also write the REFERENCE serialization into
+    /dsk/mphf (collections/boophf_ref.RefBooPHF.build, byte-identical to
+    the reference binary's own build) so reference tools load the file's
+    MPHF.
+
+    ``ref_stream``: write that reference /dsk/mphf stream. Default (None)
+    gates at REF_MPHF_STREAM_MAX_KEYS, as the JAX package does: the
+    RefBooPHF build is a 25-level sequential numpy pass over all keys,
+    minutes of host time at tens of millions of k-mers; set True (or env
+    GATB_TORCH_MPHF_REF=1) to force it, False to skip (the port's loader
+    uses the /mphf group either way)."""
+    from ..convert import u32_to_numpy
+
+    if ref_stream is None:
+        import os as _os
+
+        ref_stream = (_os.environ.get("GATB_TORCH_MPHF_REF") == "1"
+                      or solid_limbs is None
+                      or len(solid_limbs) <= REF_MPHF_STREAM_MAX_KEYS)
+    if ref_stream and solid_limbs is not None and kmer_size is not None:
+        from ..collections.boophf_ref import RefBooPHF
+        from ..collections.boophf_ref import limbs_to_words64 as ref_words
+
+        words = ref_words(np.asarray(solid_limbs, np.uint32), kmer_size)
+        ref = RefBooPHF.build(words)
+        dsk = storage.group("dsk")
+        with dsk.ostream("mphf") as os_:
+            os_.write(ref.to_bytes())
+        dsk.set_property("nb_keys", str(len(words)))
+    g = storage.group("mphf")
+    g.set_dataset("bits", u32_to_numpy(mphf.bits))
+    g.set_dataset("prefix", mphf.prefix.cpu().numpy())
+    g.set_dataset("perm", mphf.perm.cpu().numpy())
+    g.set_dataset("fallback_keys", u32_to_numpy(mphf.fallback_keys))
+    g.set_dataset("fallback_ranks", mphf.fallback_ranks.cpu().numpy())
+    g.set_dataset("abundance", np.asarray(abundance_codes))
+    g.set_property("sizes", np.asarray(mphf.sizes, np.uint64))
+    g.set_property("offsets", np.asarray(mphf.offsets, np.uint64))
+    g.set_property("n", np.uint64(mphf.n))
+    storage.set_state_bit(STATE_MPHF_DONE)
+
+
+def load_mphf(storage: Storage, device="cuda"):
+    """(mphf, abundance codes) from /mphf, the BooPHF's tensors on
+    ``device``; (None, None) when the group holds no BooPHF. A file in the
+    reference's layout keeps its MPHF only as the /dsk/mphf stream, which
+    the port does not read back: a lookup through it is host code, and
+    Graph.node_index answers through the rank search on the device."""
+    import torch
+
+    from ..collections.boophf import BooPHF
+    from ..convert import u32_to_torch
+
+    g = storage.group("mphf")
+    bits = g.get_dataset("bits")
+    if bits is None:
+        return None, None
+
+    def ints(name):
+        return torch.from_numpy(np.asarray(g.get_dataset(name), np.int32)
+                                .copy()).to(device)
+
+    fb_keys = np.asarray(g.get_dataset("fallback_keys"), np.uint32)
+    mphf = BooPHF(
+        tuple(int(x) for x in g.get_property("sizes")),
+        u32_to_torch(bits, device), ints("prefix"),
+        tuple(int(x) for x in g.get_property("offsets")),
+        u32_to_torch(fb_keys, device),
+        ints("fallback_ranks"), ints("perm"), int(g.get_property("n")))
+    return mphf, g.get_dataset("abundance")
 
 
 def save_config(storage: Storage, info: dict) -> None:

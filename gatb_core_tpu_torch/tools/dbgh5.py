@@ -4,15 +4,14 @@ Mirrors the reference tool (tools/dbgh5.cpp:34-95) and its flag names
 (tools/misc/api/StringsRepository.hpp): -in, -out, -kmer-size,
 -abundance-min, -abundance-max, -minimizer-size, -histo-max, -check.
 
-This port runs counting, Bloom, debloom, adjacency and branching on the
-CUDA device and writes /configuration, /dsk/solid, /histogram, /minimizers,
-/bloom, /debloom, /adjacency and /branching. The MPHF stage is not ported
-yet and the flag defaults stay the reference's, so a run must switch it
-off, or it ends in NotImplementedError naming the stage:
+This port runs counting, the MPHF, Bloom, debloom, adjacency and
+branching on the CUDA device and writes /configuration, /dsk/solid (and
+the reference MPHF stream /dsk/mphf), /histogram, /minimizers, /mphf,
+/bloom, /debloom, /adjacency and /branching, with the reference's flag
+defaults:
 
   python -m gatb_core_tpu_torch.tools.dbgh5 -in reads.fa -kmer-size 31 \
-      -abundance-min 3 -out graph.h5 -mphf none [-kff] \
-      [-check expected.props]
+      -abundance-min 3 -out graph.h5 [-kff] [-check expected.props]
 """
 
 from __future__ import annotations
@@ -49,8 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-solidity-kind", dest="solidity_kind", default="sum",
                    choices=["sum", "min", "max", "one", "all", "custom"])
     # postsolid stage kinds (reference flag names STR_BLOOM_KIND /
-    # STR_DEBLOOM_KIND / STR_MPHF_TYPE; defaults = reference defaults).
-    # Of -mphf only 'none' runs in this port so far.
+    # STR_DEBLOOM_KIND / STR_MPHF_TYPE; defaults = reference defaults)
     p.add_argument("-bloom", dest="bloom", default="neighbor",
                    choices=["none", "basic", "cache", "neighbor"])
     p.add_argument("-debloom", dest="debloom", default="cascading",
@@ -60,8 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for reference compat (both impls "
                         "produce the same cFP set here)")
     p.add_argument("-mphf", dest="mphf", default="boophf",
-                   choices=["none", "boophf", "emphf"],
-                   help="not ported yet: pass none")
+                   choices=["none", "boophf", "emphf"])
     p.add_argument("-branching-nodes", dest="branching", default="stored",
                    choices=["none", "stored"])
     p.add_argument("-verbose", dest="verbose", type=int, default=1)

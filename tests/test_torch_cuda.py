@@ -242,3 +242,41 @@ def test_graph_on_card_matches_cpu(cuda, k):
                               b.contains(q, mode=mode))
     assert np.array_equal(a.node_index(q), b.node_index(q))
     assert np.array_equal(a.adjacency_masks(q), b.adjacency_masks(q))
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_mphf_and_unitigs_on_card_match_cpu(cuda, k):
+    """The default-flag build (the MPHF with it) and the unitig graph on
+    the card against the same on the CPU: every BooPHF array, its rank of
+    every node, node_index, unitig sequences, means, node maps and
+    links."""
+    from gatb_core_tpu_torch import Graph
+    from gatb_core_tpu_torch.convert import boophf_to_numpy, u32_to_torch
+
+    rng = np.random.default_rng(k + 1)
+    genome = "".join(rng.choice(list("ACGT"), size=6000))
+    reads = [genome[i:i + 120] for i in range(0, 5880, 7)]
+    reads.append(genome[100:100 + k] + "ACGTTGCA" * 6)
+    kw = dict(kmer_size=k, abundance_min=2, batch_reads=64,
+              superbatch_rows=1 << 16)
+    a = Graph.create(BankStrings(*reads), device="cuda", **kw)
+    b = Graph.create(BankStrings(*reads), device="cpu", **kw)
+    assert a._mphf.bits.is_cuda and not b._mphf.bits.is_cuda
+    ma, mb = boophf_to_numpy(a._mphf), boophf_to_numpy(b._mphf)
+    for key in ma:
+        assert np.array_equal(ma[key], mb[key]), key
+    absent = a.solid_limbs.copy()
+    absent[:, -1] ^= 1
+    q = np.concatenate([a.solid_limbs, absent])
+    R.reset_launches()
+    assert np.array_equal(a.node_index(q), b.node_index(q))
+    assert (a.node_index(a.solid_limbs) == np.arange(a.nb_nodes)).all()
+    got = a._mphf.rank(u32_to_torch(a.solid_limbs, "cuda")).cpu().numpy()
+    assert np.array_equal(got, np.arange(a.nb_nodes))
+    ua, ub = a.unitig_graph(), b.unitig_graph()
+    assert R.launches["rank_rows"] >= 2
+    assert list(ua.sequences) == list(ub.sequences)
+    assert ua.mean_abundance.tobytes() == ub.mean_abundance.tobytes()
+    for f in ("kmer_counts", "link_offsets", "link_targets"):
+        assert np.array_equal(getattr(ua, f), getattr(ub, f)), f
+    assert a.contigs()[0] == b.contigs()[0]

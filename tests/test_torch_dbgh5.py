@@ -1,11 +1,12 @@
 """gatb_core_tpu_torch dbgh5 against the JAX package's: the two tools build
 the graph of a bank the test writes and their ``.h5`` files must hold the
 same datasets (``/dsk/solid``, the histogram, ``/minimizers``, and with the
-postsolid stages on ``/bloom``, ``/debloom``, ``/adjacency``,
-``/branching``) and the same configuration and state attributes (times and
-paths left out), at k=31 and k=63; the KFF files must be equal byte for
-byte. The port runs on the CPU here (``device="cpu"`` handed to
-``Graph.create``).
+postsolid stages on ``/mphf``, ``/dsk/mphf``, ``/bloom``, ``/debloom``,
+``/adjacency``, ``/branching``) and the same configuration and state
+attributes (times and paths left out), at k=31 and k=63; the KFF files must
+be equal byte for byte; each package's ``Graph.load`` reads the other's
+file, and ``dbginfo`` prints the same text. The port runs on the CPU here
+(``device="cpu"`` handed to ``Graph.create`` and ``Graph.load``).
 """
 
 import os
@@ -180,22 +181,34 @@ def test_dbgh5_postsolid_h5_equal_jax(k, bloom, debloom, bank, tmp_path,
 
 def test_dbgh5_default_stages_raise_until_ported(bank, tmp_path, on_cpu,
                                                  monkeypatch):
-    """The reference's flag defaults ask for a stage the port does not have
-    yet, the MPHF: the run ends in NotImplementedError naming the stage,
-    never in a silent skip. With ``-mphf none`` the defaults run."""
+    """The reference's flag defaults run every stage, the MPHF with them
+    (the run raised NotImplementedError until the MPHF was ported; the
+    name stays): the port's file and props equal JAX's with those flags,
+    ``-mphf emphf`` builds the same BooPHF, and ``-check`` compares the
+    branching keys."""
     monkeypatch.chdir(tmp_path)
-    base = ["-in", bank, "-kmer-size", "31", "-verbose", "0", "-out",
-            "x.h5"] + SMALL
-    with pytest.raises(NotImplementedError, match="mphf"):
-        tdbgh5.main(base)
-    with pytest.raises(NotImplementedError, match="mphf"):
-        tdbgh5.main(base + ["-mphf", "emphf", "-bloom", "none"])
-    assert tdbgh5.main(base + ["-mphf", "none", "-check-dump",
-                               "x.props"]) == 0
+    base = ["-in", bank, "-kmer-size", "31", "-verbose", "0"] + SMALL
+    assert jdbgh5.main(base + ["-out", "j.h5", "-check-dump", "j.props"]) \
+        == 0
+    assert tdbgh5.main(base + ["-out", "x.h5", "-check-dump", "x.props"]) \
+        == 0
+    j = _same_files("j.h5", "x.h5")
+    assert {"mphf/bits", "mphf/perm", "dsk/mphf"} <= set(j)
+    assert tdbgh5.main(base + ["-mphf", "emphf", "-out", "e.h5"]) == 0
+    e = _contents("e.h5")
+    for key in j:
+        if key.startswith("mphf/") and not key.endswith("@"):
+            assert np.array_equal(e[key], j[key]), key
     with open("x.props") as f:
         props = dict(line.split(None, 1) for line in f if " " in line)
+    with open("j.props") as f:
+        jprops = dict(line.split(None, 1) for line in f if " " in line)
     assert int(props["nb_branching"]) > 0 and props["checksum_branching"]
     assert "postsolid_time" in props and int(props["nb_cfp"]) > 0
+    assert "postsolid_time.mphf" in props
+    for key in ("nb_branching", "checksum_branching", "nb_cfp",
+                "kmers_nb_solid", "debloom_kind"):
+        assert props[key] == jprops[key], key
     # -check compares the branching keys too
     assert tdbgh5.main(base + ["-mphf", "none", "-check", "x.props"]) == 0
     with open("x.props") as f:
@@ -204,6 +217,131 @@ def test_dbgh5_default_stages_raise_until_ported(bank, tmp_path, on_cpu,
     with open("y.props", "w") as f:
         f.writelines(lines)
     assert tdbgh5.main(base + ["-mphf", "none", "-check", "y.props"]) == 1
+
+
+@pytest.fixture(scope="module", params=[31, 63])
+def default_files(request, tmp_path_factory):
+    """JAX's and the port's dbgh5 with the default flags on one bank:
+    (k, directory holding jax.h5 and port.h5)."""
+    k = request.param
+    d = tmp_path_factory.mktemp(f"default{k}")
+    rng = np.random.default_rng(3)
+    genome = "".join(rng.choice(list("ACGT"), size=4000))
+    with open(d / "reads.fa", "w") as f:
+        for i in range(0, 3900, 5):
+            f.write(f">r{i}\n{genome[i:i + 100]}\n")
+    flags = ["-in", str(d / "reads.fa"), "-kmer-size", str(k),
+             "-abundance-min", "3", "-verbose", "0"] + SMALL
+    orig = Graph.create.__func__
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(d)
+        mp.setattr(Graph, "create", classmethod(
+            lambda cls, **kw: orig(cls, device="cpu", **kw)))
+        assert jdbgh5.main(flags + ["-out", "jax.h5"]) == 0
+        assert tdbgh5.main(flags + ["-out", "port.h5"]) == 0
+    return k, d
+
+
+def test_dbgh5_default_flags_h5_equal_jax(default_files):
+    """Every dataset and attribute of the two files equal, /mphf/* and
+    the reference stream /dsk/mphf byte for byte."""
+    k, d = default_files
+    j = _same_files(str(d / "jax.h5"), str(d / "port.h5"))
+    for key in ("mphf/bits", "mphf/prefix", "mphf/perm", "mphf/abundance",
+                "mphf/fallback_keys", "mphf/fallback_ranks", "dsk/mphf",
+                "bloom/bloom", "debloom/cascading/t4", "branching/nodes"):
+        assert key in j, key
+    assert j["dsk/mphf"].dtype == np.uint8 and len(j["dsk/mphf"]) > 1000
+    assert j["mphf/@"]["n"] == len(j["dsk/solid"])
+    with h5py.File(d / "port.h5", "r") as f:
+        state = int(f.attrs["state"])
+    assert state & th5.STATE_MPHF_DONE
+
+
+def _ref_layout(src, dst):
+    """A copy of a file in the reference's layout: no /mphf encoding (only
+    the /dsk/mphf stream) and the cascade blooms as raw /debloom/bloom{2,3,4}
+    datasets with string attributes, /debloom/cfp holding T4."""
+    import shutil
+
+    shutil.copy(src, dst)
+    with h5py.File(dst, "a") as f:
+        for name in ("bits", "prefix", "perm", "fallback_keys",
+                     "fallback_ranks"):
+            del f["mphf"][name]
+        g = f["debloom"]
+        for i in (2, 3, 4):
+            cg = g["cascading"][f"bloom{i}"]
+            ds = g.create_dataset(f"bloom{i}",
+                                  data=cg["bloom"][...].view(np.uint8))
+            for attr, key in (("size", "size_bits"), ("nb_hash", "nb_hash"),
+                              ("type", "kind"), ("kmer_size", "kmer_size")):
+                ds.attrs[attr] = np.array([str(cg.attrs[key]).encode()],
+                                          dtype=h5py.string_dtype())
+        del g["cascading"]
+        del g["cfp_all"]
+
+
+def test_graph_load_reads_either_packages_file(default_files, tmp_path):
+    """Each package's Graph.load opens the other's file (and a copy in the
+    reference's layout) and answers contains, node_index, query_abundance
+    and branching_nodes alike. The port loads the BooPHF of /mphf onto the
+    device; from a reference-layout file it loads none (JAX adapts the
+    /dsk/mphf stream on the host) and answers through the rank search."""
+    from gatb_core_tpu.collections.boophf_ref import RefMPHFAdapter as JAd
+    from gatb_core_tpu.debruijn.graph import Graph as JGraph
+    from gatb_core_tpu_torch.collections.boophf import BooPHF
+    from gatb_core_tpu_torch.convert import boophf_to_numpy, u32_to_torch
+
+    k, d = default_files
+    ref = str(tmp_path / "ref.h5")
+    _ref_layout(str(d / "jax.h5"), ref)
+    for path in (str(d / "jax.h5"), str(d / "port.h5"), ref):
+        tg = Graph.load(path, device="cpu")
+        jg = JGraph.load(path)
+        if path == ref:
+            assert tg._mphf is None
+            assert isinstance(jg._mphf, JAd)
+        else:
+            assert isinstance(tg._mphf, BooPHF)
+            got = boophf_to_numpy(tg._mphf)
+            for f in ("bits", "prefix", "perm", "fallback_keys"):
+                assert np.array_equal(got[f], np.asarray(
+                    getattr(jg._mphf, f))), f
+            assert np.array_equal(tg._mphf.rank(u32_to_torch(
+                tg.solid_limbs, "cpu")).numpy(), np.arange(tg.nb_nodes))
+        assert tg._debloom.kind == jg._debloom.kind == "cascading"
+        assert np.array_equal(tg.solid_limbs, jg.solid_limbs)
+        assert np.array_equal(tg.abundance_codes, jg.abundance_codes)
+        assert np.array_equal(tg._adjacency, jg._adjacency)
+        assert np.array_equal(tg.branching_nodes(), jg.branching_nodes())
+        assert np.array_equal(tg._branching_counts, jg._branching_counts)
+        absent = tg.solid_limbs.copy()
+        absent[:, -1] ^= 1
+        q = np.concatenate([tg.solid_limbs, absent, jg._debloom.cfp])
+        for mode in ("exact", "bloom_cfp"):
+            assert np.array_equal(tg.contains(q, mode=mode),
+                                  jg.contains(q, mode=mode))
+        assert np.array_equal(tg.node_index(q), jg.node_index(q))
+        assert np.array_equal(tg.query_abundance(q), jg.query_abundance(q))
+        assert (tg.node_index(tg.solid_limbs) == np.arange(tg.nb_nodes)).all()
+        tg.storage.close()
+        jg.storage.close()
+
+
+def test_dbginfo_text_equal_jax(default_files, capsys):
+    from gatb_core_tpu.tools import dbginfo as jinfo
+    from gatb_core_tpu_torch.tools import dbginfo as tinfo
+
+    k, d = default_files
+    for name in ("jax.h5", "port.h5"):
+        path = str(d / name)
+        assert jinfo.main(["-in", path]) == 0
+        want = capsys.readouterr().out
+        assert tinfo.main(["-in", path]) == 0
+        got = capsys.readouterr().out
+        assert got == want and f"kmer_size    : {k}" in got
+        assert "MPHF_DONE" in got and "checksum_branching" in got
 
 
 def test_dbgh5_check_dump_and_tool_contract(bank, tmp_path, on_cpu,

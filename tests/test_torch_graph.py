@@ -165,8 +165,45 @@ def test_postsolid_time_with_every_stage_off():
 
 
 def test_mphf_stage_still_raises():
-    with pytest.raises(NotImplementedError, match="mphf.*A5.4"):
-        _create(Graph, BankStrings(*_reads(15)), 15, mphf_kind="boophf")
+    """The MPHF stage (it raised before it was ported; the name stays):
+    'boophf' builds the BooPHF equal to JAX's array for array ('emphf'
+    the same one) and ranking every node; node_index, query_abundance and
+    the node-state maps answer as JAX's graph does through its MPHF, -1 on
+    absent rows."""
+    from gatb_core_tpu_torch.collections.boophf import BooPHF
+    from gatb_core_tpu_torch.convert import boophf_to_numpy, u32_to_torch
+
+    seqs = _reads(15, seed=4) + _reads(15, seed=5)
+    tg = _create(Graph, BankStrings(*seqs), 15, mphf_kind="boophf")
+    jg = _create(JGraph, JBank(*seqs), 15, mphf_kind="boophf")
+    assert isinstance(tg._mphf, BooPHF) and tg._mphf.bits.device.type == \
+        "cpu"
+    got = boophf_to_numpy(tg._mphf)
+    other = _create(Graph, BankStrings(*seqs), 15, mphf_kind="emphf")
+    assert all(np.array_equal(v, got[key]) for key, v in
+               boophf_to_numpy(other._mphf).items())
+    for f in ("bits", "prefix", "perm", "fallback_keys", "fallback_ranks"):
+        want = np.asarray(getattr(jg._mphf, f))
+        assert got[f].dtype == want.dtype and np.array_equal(got[f], want)
+    assert got["sizes"] == jg._mphf.sizes and got["n"] == tg.nb_nodes
+    assert np.array_equal(tg._mphf.rank(u32_to_torch(tg.solid_limbs, "cpu"))
+                          .numpy(), np.arange(tg.nb_nodes))
+    absent = tg.solid_limbs.copy()
+    absent[:, -1] ^= 3
+    for q in (tg.solid_limbs, absent, tg.solid_limbs[7]):
+        idx = tg.node_index(q)
+        assert idx.dtype == np.int32
+        assert np.array_equal(idx, jg.node_index(q))
+        assert np.array_equal(tg.query_abundance(q), jg.query_abundance(q))
+    assert (tg.node_index(tg.solid_limbs) == np.arange(tg.nb_nodes)).all()
+    for g in (tg, jg):
+        g.set_node_state(g.solid_limbs[2:6], 3)
+        g.delete_node(g.solid_limbs[4])
+    for q in (tg.solid_limbs, absent):
+        assert np.array_equal(tg.query_node_state(q), jg.query_node_state(q))
+        assert np.array_equal(tg.is_node_deleted(q), jg.is_node_deleted(q))
+    ti, ji = tg.get_info(), jg.get_info()
+    assert "postsolid_time.mphf" in ti and set(ji) - set(ti) == ONLY_JAX
 
 
 def test_membership_modes():
@@ -298,3 +335,63 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "gatb_core_tpu"), \
                 f"{path} imports {mod}"
+
+
+@pytest.mark.parametrize("debloom", ["cascading", "original", "none"])
+def test_load_resumes_after_every_stage(debloom, tmp_path):
+    """The port's Graph.load of its own file (the cases of
+    tests/test_postsolid.py): every completed stage comes back on the
+    device asked for, a skipped one stays absent, and the loaded graph
+    answers as the built one and as JAX's load of the same file."""
+    from gatb_core_tpu_torch.collections.boophf import BooPHF
+    from gatb_core_tpu_torch.ops.neighbor_ops import neighbor_candidates
+    from gatb_core_tpu_torch.storage import hdf5 as th5
+
+    out = str(tmp_path / "g.h5")
+    kw = dict(output=out, repartition=False)
+    if debloom == "none":
+        kw.update(bloom_kind="none", mphf_kind="none")
+    else:
+        kw.update(debloom_kind=debloom, mphf_kind="boophf")
+    rng = np.random.default_rng(6)
+    genome = "".join(rng.choice(list("ACGT"), size=3000))
+    seqs = [genome[i:i + 100] for i in range(0, 2900, 7)]
+    g1 = _create(Graph, BankStrings(*seqs), 21, **kw)
+    assert debloom == "none" or g1._debloom.nb_cfp > 0
+    g1.storage.close()
+    g2 = Graph.load(out, device="cpu")
+    jg = JGraph.load(out)
+    state = g2.storage.get_state()
+    assert bool(state & th5.STATE_MPHF_DONE) == (debloom != "none")
+    assert bool(state & th5.STATE_DEBLOOM_DONE) == (debloom != "none")
+    assert state & th5.STATE_BRANCHING_DONE
+    assert np.array_equal(g2.branching_nodes(), g1.branching_nodes())
+    assert np.array_equal(g2._branching_counts, g1._branching_counts)
+    assert np.array_equal(g2._adjacency, g1._adjacency)
+    idx = g2.node_index(g2.solid_limbs)
+    assert (idx == np.arange(g2.nb_nodes)).all()
+    if debloom == "none":
+        assert g2._mphf is None and g2._debloom is None
+    else:
+        assert isinstance(g2._mphf, BooPHF)
+        assert g2._mphf.bits.device.type == "cpu"
+        assert g2._debloom.kind == g1._debloom.kind == debloom
+        assert np.array_equal(g2._debloom.bloom.to_numpy(),
+                              g1._debloom.bloom.to_numpy())
+        assert np.array_equal(g2._debloom.cfp, g1._debloom.cfp)
+        cands = neighbor_candidates(g2._padded_table(), 21).numpy() \
+            .astype(np.uint32).reshape(-1, g2._w)
+        assert np.array_equal(g2.contains(cands, mode="bloom_cfp"),
+                              g2.contains(cands, mode="exact"))
+        assert np.array_equal(g2.contains(cands, mode="bloom_cfp"),
+                              jg.contains(cands, mode="bloom_cfp"))
+    assert np.array_equal(g2.query_abundance(g2.solid_limbs),
+                          jg.query_abundance(jg.solid_limbs))
+    g2.storage.close()
+    jg.storage.close()
+    with pytest.raises(ValueError, match="counting"):
+        import h5py
+
+        with h5py.File(str(tmp_path / "empty.h5"), "w"):
+            pass
+        Graph.load(str(tmp_path / "empty.h5"), device="cpu")
