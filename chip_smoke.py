@@ -104,14 +104,31 @@ numpy ground truth computed here:
      the steps of ``build_unitigs`` timed by its own CUDA events (candidate
      ranks, successor rule, cycle cut, list ranking, node maps, emit) with
      the doubling rounds.
+ 12. simplification and Monument assembly: (a) ``Graph.create`` (default
+     flags, abundance-min 2) on the bench generator's reads with 1%
+     substitutions from a second generator (1,157,174 nodes at k=31), then
+     ``simplify()``, ``contigs(traversal="monument")`` and
+     ``unitig_graph()``: the stats, pass counters, removal strings,
+     node_state, contigs and unitig graph equal to the same calls on the
+     CPU (a graph made from the card's table; its unitig graph is its
+     simplify run's final compaction) and to the JAX package's constants
+     (``JAX_BANK_A``); (b) the same at k=63 on 20k reads of a 100 kbp
+     genome; (c) ``simplify()`` on the stress table: nothing deleted, its
+     compaction equal to phase 11's unitig graph. Logged: the times of the
+     sweep, each recompaction and each bulge-walker call with its
+     candidates and fallbacks, peak device memory, the share of genome
+     k-mers live and of error k-mers deleted, contig N50 and longest.
 
-Phases 2-4 and 6-11 each run with the kernels' launch counters set to 0
+Phases 2-4 and 6-12 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels in the counts;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
-limb-sort kernels in each part of phase 9; rank_rows in each part of
-phases 10 and 11, the MPHF's fallback search and the unitig candidate
-ranks). The stress counts also log the peak of device memory allocated
+limb-sort kernels in each part of phase 9 and in each ``Graph.create`` of
+phase 12; rank_rows in each part of phases 10 and 11, the MPHF's fallback
+search and the unitig candidate ranks). In phase 12 ``simplify()`` with
+``contigs(traversal="monument")`` must launch rank_rows exactly once per
+chunk of one full sweep, and ``unitig_graph()`` of the simplified graph
+(a fresh Simplifications, as in the JAX package) once more per chunk. The stress counts also log the peak of device memory allocated
 during the count. h5py is not installed beside the card, so the MPHF's
 ``.h5`` datasets, ``Graph.load`` and ``dbginfo`` are held by the CPU tests
 only.
@@ -122,6 +139,7 @@ reports them; the last line is the JSON result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -1822,6 +1840,13 @@ def check_ends(name: str, heads, tails, degrees, succ_of, rc) -> int:
     return int(stops.sum())
 
 
+def same_unitig_graph(a, b) -> bool:
+    return (list(a.sequences) == list(b.sequences)
+            and a.mean_abundance.tobytes() == b.mean_abundance.tobytes()
+            and all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
+                    ("kmer_counts", "link_offsets", "link_targets")))
+
+
 def phase_unitigs(tally, S, name: str, graph, tmp: str, card: str):
     """Phase 11: Graph.unitig_graph() and Graph.contigs() on a phase-9
     graph, checked against numpy from the sequences alone, and on the bench
@@ -1965,11 +1990,7 @@ def phase_unitigs(tally, S, name: str, graph, tmp: str, card: str):
         ref = build_unitig_graph(graph.solid_limbs, graph.solid_counts,
                                  graph._adjacency, k, device="cpu")
         cpu_s = time.time() - t1
-        check(list(ref.sequences) == seqs
-              and ref.mean_abundance.tobytes() == ug.mean_abundance.tobytes()
-              and np.array_equal(ref.kmer_counts, ug.kmer_counts)
-              and np.array_equal(ref.link_offsets, ug.link_offsets)
-              and np.array_equal(ref.link_targets, ug.link_targets),
+        check(same_unitig_graph(ref, ug),
               f"11 {name}: the unitig graph differs from the CPU build")
         texts = []
         for g in (ug, ref):
@@ -1992,6 +2013,253 @@ def phase_unitigs(tally, S, name: str, graph, tmp: str, card: str):
         + ("" if cpu_s is None else
            f"; equal to the CPU build ({cpu_s:.3f} s), GFA text too")
         + f"; {card}")
+    return got, ug
+
+
+# ---------------------------------------------------------------------------
+# phase 12: simplification and Monument assembly on banks with errors
+# ---------------------------------------------------------------------------
+
+# the bench generator with 1% substitutions (bank a: 200k x 150 bp of a 1 Mbp
+# genome, ~30x; bank b: 20k x 150 bp of a 100 kbp genome, 30x), abundance-min 2
+ERROR_BANKS = {
+    "a": {"k": 31, "reads": dict(n_reads=200_000, genome_len=1_000_000,
+                                 seed=7, err_seed=1007)},
+    "b": {"k": 63, "reads": dict(n_reads=20_000, genome_len=100_000,
+                                 seed=7, err_seed=1007)},
+}
+# JAX's Graph.simplify() and contigs(traversal="monument") on bank a, the
+# table counted by the port on the CPU
+# (tests/test_torch_simplify.py::test_phase12_constants_match_jax)
+JAX_BANK_A = {
+    "stats": [6932, 1602, 0, 12], "passes": [4, 4, 4],
+    "strings": ["377 + 0 + 0 + 0", "0 + 0 + 0 + 0", "0 + 0 + 0 + 0"],
+    "node_state_sha256":
+        "cc79d9ac383673c774fe0c306dbf31c42700ef1307f59c20e2995929234cee38",
+    "contigs": 1,
+    "contigs_sha256":
+        "efbc055af5359644982cc35fea9abfc5501b374ae2e4c36dfa4f0567f5ee260a",
+}
+
+
+def error_reads(n_reads: int, genome_len: int, seed: int, err_seed: int,
+                read_len: int = 150, rate: float = 0.01) -> np.ndarray:
+    """``bench_reads`` with each base replaced, with probability ``rate``,
+    by one of the other three; the substitutions come from a second
+    generator (``err_seed``)."""
+    codes = bench_reads(n_reads, read_len, genome_len, seed)
+    rng = np.random.default_rng(err_seed)
+    hit = rng.random(codes.shape) < rate
+    shift = rng.integers(1, 4, size=codes.shape, dtype=np.uint8)
+    return np.where(hit, (codes + shift) & 3, codes).astype(np.uint8)
+
+
+def simplify_record(graph, simp, stats, contigs: list) -> dict:
+    """What a simplify + Monument run decided, in comparable form."""
+    return {
+        "stats": [stats.tips_removed, stats.bulges_removed, stats.ec_removed,
+                  stats.passes],
+        "passes": [simp.nb_tip_passes, simp.nb_bulge_passes,
+                   simp.nb_ec_passes],
+        "strings": [simp.tip_removal, simp.bubble_removal, simp.ec_removal],
+        "node_state_sha256": hashlib.sha256(
+            graph.node_state.tobytes()).hexdigest(),
+        "contigs": len(contigs),
+        "contigs_sha256": hashlib.sha256(
+            "\n".join(contigs).encode()).hexdigest(),
+    }
+
+
+class SimplifyProbe:
+    """While on, times (host clock around a device sync, ms) every full
+    sweep, recompaction and bulge-walker call of any Simplifications, with
+    the walker's candidates and fallbacks; the class is restored on exit."""
+
+    def __init__(self, torch):
+        from gatb_core_tpu_torch.debruijn.simplifications import \
+            Simplifications
+
+        self.cls, self.torch = Simplifications, torch
+        self.calls = {"_full_sweep": [], "_compact_uncached": [],
+                      "_hmcp_batch": []}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.cls, name) for name in self.calls}
+        for name, f in self.saved.items():
+            setattr(self.cls, name, self._timed(name, f))
+        return self
+
+    def _timed(self, name, f):
+        torch, log = self.torch, self.calls[name]
+
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            # the walker: (candidates, fallbacks, ms)
+            log.append((len(args[2]), int(out[1].sum()), ms)
+                       if name == "_hmcp_batch" else ms)
+            return out
+        return wrapper
+
+    def __exit__(self, *exc):
+        for name, f in self.saved.items():
+            setattr(self.cls, name, f)
+
+    def summary(self) -> str:
+        walk = self.calls["_hmcp_batch"]
+        comp = self.calls["_compact_uncached"]
+        return (f"full sweep {sum(self.calls['_full_sweep']):.3f} ms, "
+                f"{len(comp)} compactions ({', '.join(f'{x:.1f}' for x in comp)}"
+                f" ms), bulge walker per pass (candidates / fallbacks / ms): "
+                + ", ".join(f"{c} / {fb} / {ms:.1f}" for c, fb, ms in walk))
+
+
+def genome_shares(graph, bank: dict, k: int):
+    """(share of the genome's distinct k-mers still live, share of the
+    other nodes, the error k-mers, deleted)."""
+    r = bank["reads"]
+    genome = np.random.default_rng(r["seed"]).integers(
+        0, 4, size=r["genome_len"], dtype=np.uint8)
+    hi, lo, _ = window_values(genome, k)
+    thi, tlo = table_hi_lo(graph.solid_limbs)
+    if k <= 32:
+        truth = np.unique(lo)
+        in_genome = np.isin(tlo, truth)
+    else:
+        truth = set(zip(hi.tolist(), lo.tolist()))
+        in_genome = np.fromiter((x in truth for x in zip(
+            thi.tolist(), tlo.tolist())), bool, len(tlo))
+    live = (graph.node_state & 1) == 0
+    return (int((in_genome & live).sum()) / len(truth),
+            int((~in_genome & ~live).sum()) / max(int((~in_genome).sum()), 1))
+
+
+def n50(lengths) -> int:
+    lens = np.sort(np.asarray(lengths, np.int64))[::-1]
+    if not len(lens):
+        return 0
+    return int(lens[np.searchsorted(np.cumsum(lens), lens.sum() / 2)])
+
+
+def phase_simplify(tally, S, name: str, tmp: str, card: str):
+    """Phase 12(a)/(b): ``Graph.create`` (default flags, abundance-min 2) on
+    an error bank, then ``simplify()``, ``contigs(traversal="monument")``
+    and ``unitig_graph()`` on the card, each counted apart; the decisions,
+    the contigs and the unitig graph against the same calls on the CPU
+    (the plain versions; the CPU graph is made from the card's table, and
+    its unitig graph is its simplify run's final compaction, the value the
+    fresh ``unitig_graph()`` compaction gives); bank a also against the
+    JAX package's constants. Returns the launch counts of the three
+    parts."""
+    import torch
+
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+    from gatb_core_tpu_torch.ops.sortops import sweep_chunk
+
+    bank = ERROR_BANKS[name]
+    k = bank["k"]
+    path = os.path.join(tmp, f"errors_{name}.fa")
+    with open(path, "wb") as f:
+        write_reads(f, error_reads(**bank["reads"]), 0)
+    t0 = time.time()
+    graph, got_create = tally.counted(
+        S, f"phase 12{name} create", lambda: Graph.create(
+            bank=path, kmer_size=k, abundance_min=2), path=GRAPH_KERNELS)
+    create_s = time.time() - t0
+    os.remove(path)
+    n = graph.nb_nodes
+    chunks = 1 if n <= 1 << 22 else -(-n // sweep_chunk(n))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        stats = graph.simplify()
+        return stats, graph.contigs(traversal="monument")[0]
+
+    with SimplifyProbe(torch) as probe:
+        (stats, contigs), got = tally.counted(
+            S, f"phase 12{name} simplify + monument", run,
+            path=("rank_rows",))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(got["rank_rows"] == chunks,
+          f"12{name}: rank_rows is not one launch per chunk of one sweep")
+    simp = graph._simplifications
+    record = simplify_record(graph, simp, stats, contigs)
+    t1 = time.time()
+    ug, got_ug = tally.counted(S, f"phase 12{name} unitig_graph",
+                               graph.unitig_graph, path=("rank_rows",))
+    ug_s = time.time() - t1
+    check(got_ug["rank_rows"] == chunks,
+          f"12{name}: unitig_graph is not one sweep")
+    # the same calls on the CPU
+    t1 = time.time()
+    cpu = Graph(k, graph.solid_limbs, graph.solid_counts, device="cpu")
+    cpu_stats = cpu.simplify()
+    cpu_contigs = cpu.contigs(traversal="monument")[0]
+    cpu_s = time.time() - t1
+    csimp = cpu._simplifications
+    check(record == simplify_record(cpu, csimp, cpu_stats, cpu_contigs)
+          and contigs == cpu_contigs,
+          f"12{name}: simplify or Monument differs from the CPU run")
+    _, cpu_ug = csimp._compact(*csimp._rows(csimp._live()))
+    check(same_unitig_graph(ug, cpu_ug),
+          f"12{name}: the unitig graph differs from the CPU run")
+    if name == "a":
+        check(record == JAX_BANK_A,
+              "12a: simplify or Monument differs from the JAX package's "
+              f"constants: {record}")
+    live_share, err_deleted = genome_shares(graph, bank, k)
+    lens = [len(c) for c in contigs]
+    log(f"phase 12{name} k={k}: {n} nodes ({create_s:.3f} s create), stats "
+        f"{record['stats']}, passes {record['passes']}, "
+        f"{int((graph.node_state & 1).sum())} deleted; simplify "
+        f"{graph.info['postsolid_time.simplify']:.3f} s, monument "
+        f"{graph.info['postsolid_time.contigs']:.3f} s, unitig_graph "
+        f"{ug_s:.3f} s ({ug.nb_unitigs} unitigs), peak device memory "
+        f"{peak:.1f} MiB; {probe.summary()}; genome k-mers live "
+        f"{live_share:.6f}, error k-mers deleted {err_deleted:.6f}; "
+        f"{len(contigs)} contigs, N50 {n50(lens)}, longest "
+        f"{max(lens, default=0)} of a {bank['reads']['genome_len']} bp "
+        f"genome; equal to the CPU run ({cpu_s:.3f} s)"
+        + (" and to the JAX package's constants" if name == "a" else "")
+        + f"; {card}")
+    return {"create": got_create, "simplify": got, "unitig_graph": got_ug}
+
+
+def phase_simplify_stress(tally, S, graph, ug11, card: str):
+    """Phase 12(c): ``simplify()`` on the stress table (error-free: nothing
+    may be deleted); its final compaction must equal phase 11's unitig
+    graph."""
+    import torch
+
+    from gatb_core_tpu_torch.ops.sortops import sweep_chunk
+
+    n = graph.nb_nodes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with SimplifyProbe(torch) as probe:
+        stats, got = tally.counted(S, "phase 12c stress simplify",
+                                   graph.simplify, path=("rank_rows",))
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check(got["rank_rows"] == -(-n // sweep_chunk(n)),
+          "12c: rank_rows is not one launch per chunk of one sweep")
+    check(not (graph.node_state & 1).any() and stats.tips_removed
+          == stats.bulges_removed == stats.ec_removed == 0,
+          "12c: simplify deleted nodes of an error-free genome")
+    simp = graph._simplifications
+    _, ug = simp._compact(*simp._rows(simp._live()))
+    check(same_unitig_graph(ug, ug11),
+          "12c: the simplify compaction differs from phase 11's unitigs")
+    log(f"phase 12c stress simplify: {n} nodes, {wall:.3f} s wall "
+        f"(postsolid_time.simplify {graph.info['postsolid_time.simplify']:.3f}"
+        f" s), {stats.passes} passes, nothing deleted; {probe.summary()}; "
+        f"peak device memory {peak:.1f} MiB; its compaction equals phase "
+        f"11's unitig graph; {card}")
     return got
 
 
@@ -2130,13 +2398,21 @@ def main() -> int:
                                      sample=pick if name == "stress"
                                      else None)
                     for name, g in graphs.items()}
-        unitig_got = {name: phase_unitigs(tally, S, name, g, tmp, card)
-                      for name, g in graphs.items()}
-        del graphs
+        unitig_got, ugs = {}, {}
+        for name, g in graphs.items():
+            unitig_got[name], ugs[name] = phase_unitigs(tally, S, name, g,
+                                                        tmp, card)
+        simplify_got = {
+            "stress": phase_simplify_stress(tally, S, graphs["stress"],
+                                            ugs["stress"], card)}
+        del graphs, ugs
+        for name in ERROR_BANKS:
+            simplify_got[name] = phase_simplify(tally, S, name, tmp, card)
     log(f"launches in the stress count: fold {fold_got}, LSM {lsm_got}")
     log(f"launches in the postsolid builds: {graph_got}")
     log(f"launches in the MPHF builds and queries: {mphf_got}")
     log(f"launches in the unitig builds: {unitig_got}")
+    log(f"launches in phase 12: {simplify_got}")
     err_s = phase_shapes(torch, S, R, tally.shapes)
     err["rank_rows"] = max(err["rank_rows"], err_g)
     for name in err:

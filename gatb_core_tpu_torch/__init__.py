@@ -4,13 +4,16 @@ A port of ``gatb_core_tpu`` (JAX on a TPU) to one NVIDIA H100. It keeps
 the JAX package's module layout and function names; the JAX package stays
 the reference it is tested against. The port covers counting (fold path
 and LSM merge chain, multibank), the whole graph build of dbgh5 (MPHF,
-Bloom, debloom, adjacency, branching, the node queries), ``Graph.load``
-and unitig compaction:
+Bloom, debloom, adjacency, branching, the node queries), ``Graph.load``,
+unitig compaction, simplification (tips, bulges, erroneous connections)
+and the Monument assembly:
 
     from gatb_core_tpu_torch import Graph, count_kmers
     res = count_kmers("reads.fa", kmer_size=31, abundance_min=3)
     graph = Graph.create("reads.fa", kmer_size=31)
     unitigs = graph.unitig_graph()
+    graph.simplify()
+    contigs, _ = graph.contigs(traversal="monument")
 
     python -m gatb_core_tpu_torch.tools.dbgh5 -in reads.fa -out graph.h5
     python -m gatb_core_tpu_torch.tools.dbginfo -in graph.h5
@@ -26,6 +29,7 @@ from .bank.fasta import (  # noqa: F401
     open_bank)
 from .collections.bloom import BloomFilter, build_bloom  # noqa: F401
 from .debruijn.graph import Graph  # noqa: F401
+from .debruijn.traversal import assemble_contigs  # noqa: F401
 from .kmer.counting import (  # noqa: F401
     CountConfig, CountResult, MultiBankCountResult, SortingCount,
     count_kmers, count_kmers_multibank, solidity_check)

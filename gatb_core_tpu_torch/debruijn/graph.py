@@ -1,9 +1,7 @@
 """De Bruijn graph over the solid k-mer set (GraphTemplate equivalent).
 
 Port of gatb_core_tpu/debruijn/graph.py (reference: debruijn/impl/
-Graph.hpp:540 / Graph.cpp) without ``simplify`` and without the two paths
-that stand on it (ROADMAP A7): ``unitig_graph`` of a graph with deleted
-nodes and ``contigs(traversal="monument")`` raise NotImplementedError.
+Graph.hpp:540 / Graph.cpp).
 
 The reference's node membership is (Bloom AND not-cFP), which by
 construction of the cFP set equals exact membership in the solid set for
@@ -509,25 +507,57 @@ class Graph:
         return ".".join(f"{ws[j]:x}" for j in range(i, -1, -1))
 
     # ------------------------------------------------------------------
-    # unitigs / contigs
+    # simplification / unitigs / contigs
     # ------------------------------------------------------------------
+    def simplify(self, verbose: int = 0):
+        """Run the full tip/bulge/EC simplification (Graph::simplify,
+        Graph.hpp:796 / Simplifications.cpp:112-215) on the device;
+        deletions land in ``node_state``."""
+        import time as _t
+
+        from .simplifications import Simplifications
+
+        t0 = _t.time()
+        simp = Simplifications(self, verbose=verbose)
+        stats = simp.simplify()
+        # keep the instance: its full-table candidate sweep and final
+        # compaction serve the Monument engine (assemble_contigs) with no
+        # second sweep
+        self._simplifications = simp
+        self.info["postsolid_time.simplify"] = round(_t.time() - t0, 3)
+        return stats
+
     def contigs(self, min_contig_len: int | None = None,
                 traversal: str = "simple"):
-        """Every maximal simple path of the graph as one compaction over
-        unitigs (the scalable equivalent of looping gatb-core's Traversal
-        over all unmarked nodes, Traversal.cpp:68-160). Returns (sequences,
-        mean_abundances) of the unitigs of at least ``min_contig_len``
-        bases (default 2k+1, Minia's contig length filter).
+        """Batched contig construction — the scalable equivalent of
+        looping gatb-core's Traversal over all unmarked nodes with a
+        Terminator (the Minia assembly loop, Traversal.cpp:68-160). Run
+        `simplify()` first for cleaned contigs.
 
-        traversal='monument' (bubble-tolerant assembly) stands on the
-        simplification engine, which is not ported yet (ROADMAP A7): it
-        raises NotImplementedError."""
+        traversal='simple' (default): every maximal simple path of the
+        LIVE graph, as one compaction over unitigs. Returns (sequences,
+        mean_abundances).
+
+        traversal='monument': bubble-tolerant Monument assembly
+        (Traversal.cpp:376-724) on the unitig-jumping engine
+        (traversal.UnitigJumpTraversal, host walk). Returns (sequences,
+        None): Monument contigs span bubbles, so a single mean abundance
+        is not well-defined.
+
+        min_contig_len defaults to 2k+1, Minia's contig length filter."""
         if min_contig_len is None:
             min_contig_len = 2 * self._k + 1
         if traversal == "monument":
-            raise NotImplementedError(
-                "contigs(traversal='monument') needs the traversal and "
-                "simplification engine, not ported yet (ROADMAP A7)")
+            import time as _t
+
+            from .traversal import assemble_contigs
+
+            t0 = _t.time()
+            seqs = assemble_contigs(self, traversal="monument",
+                                    min_contig_len=min_contig_len,
+                                    engine="fast")
+            self.info["postsolid_time.contigs"] = round(_t.time() - t0, 3)
+            return seqs, None
         ug = self.unitig_graph()
         lens = np.asarray(ug.unitig_lengths())
         keep = lens >= min_contig_len
@@ -535,23 +565,24 @@ class Graph:
         return seqs, np.asarray(ug.mean_abundance)[keep]
 
     def unitig_graph(self):
-        """Compact the graph into unitigs with links (GraphUnitigs /
-        UnitigsConstructionAlgorithm equivalent) on the device. A graph
-        with deleted nodes is compacted by the simplification engine in
-        the JAX package, not ported yet (ROADMAP A7): it raises
-        NotImplementedError."""
+        """Compact the (live) graph into unitigs with links (GraphUnitigs /
+        UnitigsConstructionAlgorithm equivalent) on the device; a graph
+        with deleted nodes through a fresh Simplifications' compaction, as
+        in the JAX package."""
         import time as _t
 
         from .graph_unitigs import build_unitig_graph
 
-        if (self.node_state & 1).any():
-            raise NotImplementedError(
-                "unitig_graph of a graph with deleted nodes needs the "
-                "simplification engine, not ported yet (ROADMAP A7)")
         t0 = _t.time()
-        adj = self.precompute_adjacency()
-        ug = build_unitig_graph(self._padded_table(), self.solid_counts,
-                                adj, self._k, device=self.device)
+        if not (self.node_state & 1).any():
+            adj = self.precompute_adjacency()
+            ug = build_unitig_graph(self._padded_table(), self.solid_counts,
+                                    adj, self._k, device=self.device)
+        else:
+            from .simplifications import Simplifications
+
+            simp = Simplifications(self)
+            _, ug = simp._compact(*simp._rows(simp._live()))
         self.info["postsolid_time.unitigs"] = round(_t.time() - t0, 3)
         return ug
 

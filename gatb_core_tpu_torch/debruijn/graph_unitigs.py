@@ -200,9 +200,12 @@ def build_unitig_graph(solid_limbs, solid_counts: np.ndarray,
     return link_unitigs(table, us, k, device=device)
 
 
-def link_unitigs(solid_limbs, us: UnitigSet, k: int,
-                 device="cuda") -> UnitigGraph:
-    """Compute oriented unitig links from extremity-k-mer adjacency."""
+def link_unitigs(solid_limbs, us: UnitigSet, k: int, device="cuda",
+                 precomputed=None) -> UnitigGraph:
+    """Compute oriented unitig links from extremity-k-mer adjacency.
+    ``precomputed``: (N, 8) candidate ranks and flips of ALL nodes as
+    device tensors; the extremity rows are then gathered instead of
+    re-swept."""
     u_count = us.nb_unitigs
     if u_count == 0:
         return UnitigGraph(k, [], np.zeros(0, np.float32),
@@ -237,7 +240,10 @@ def link_unitigs(solid_limbs, us: UnitigSet, k: int,
     ori_ids = torch.cat([2 * torch.arange(u_count, device=dev),
                          2 * torch.arange(u_count, device=dev) + 1])
     m = last_nodes.shape[0]
-    ranks, flips = _cand_ranks_flips(table[last_nodes], table, n, k)
+    if precomputed is None:
+        ranks, flips = _cand_ranks_flips(table[last_nodes], table, n, k)
+    else:
+        ranks, flips = (x[last_nodes] for x in precomputed)
 
     # out-extensions of the oriented k-mer (node, s), over all 2U
     # extremities x 4 nucleotides (the reference does this with an 8-pass

@@ -248,21 +248,46 @@ class _StepClock:
                 else (b - a) * 1e3
 
 
-def build_unitigs(solid_limbs, solid_counts: np.ndarray,
-                  adjacency: np.ndarray, k: int,
+def _on(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A numpy array or a tensor as a tensor of ``dtype`` on ``dev``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=dev, dtype=dtype)
+
+
+def cand_sweep(table: torch.Tensor, n: int, k: int,
+               chunk: int | None = None):
+    """``_cand_ranks_flips`` of every row of a device table: (ranks (n, 8)
+    int32, flips (n, 8) int8) on its device. One ``rank_rows`` launch per
+    chunk: the whole table up to 2^22 rows, else chunks of ``sweep_chunk``
+    rows (of ``chunk`` rows where given), which bound the 8C-row search and
+    its candidates on giant tables; the result does not depend on it."""
+    from ..ops.sortops import sweep_chunk
+
+    csize = chunk or (n if n <= 1 << 22 else sweep_chunk(n))
+    ranks = torch.empty((n, 8), dtype=I32, device=table.device)
+    flips = torch.empty((n, 8), dtype=torch.int8, device=table.device)
+    for i in range(0, n, csize):
+        ranks[i:i + csize], flips[i:i + csize] = _cand_ranks_flips(
+            table[i:i + csize], table, n, k)
+    return ranks, flips
+
+
+def build_unitigs(solid_limbs, solid_counts, adjacency, k: int,
                   chunk: int | None = None, device="cuda",
-                  timings: dict | None = None) -> UnitigSet:
+                  timings: dict | None = None, precomputed=None,
+                  lazy_sequences: bool = False) -> UnitigSet:
     """Compact the solid-k-mer graph into unitigs (bcalm2+bglue+links
     equivalent, UnitigsConstructionAlgorithm.cpp:90-117) on ``device``.
     ``solid_limbs`` is the sorted (N, W) uint32 table (numpy, or limb rows
-    already on the device). The candidates are ranked in one sweep over
-    the table, or in chunks of ``sweep_chunk`` rows above 2^22 rows (of
-    ``chunk`` rows where given); the result does not depend on it.
+    already on the device); ``solid_counts`` and ``adjacency`` numpy arrays
+    or tensors. The candidates are ranked by ``cand_sweep`` unless
+    ``precomputed`` gives them: (N, 8) int32 ranks and int8 flips as device
+    tensors (Simplifications' remapped sweep). ``lazy_sequences`` defers
+    the emit to the first access of a sequence (``LazySequences``).
     ``timings``: a dict that receives the milliseconds of each step
     (``candidate_ranks``, ``successor_rule``, ``cycle_cut``,
     ``list_ranking``, ``node_maps``, ``emit``; ``_StepClock``)."""
-    from ..ops.sortops import sweep_chunk
-
     table = rows_to_device(solid_limbs, device)
     n = table.shape[0]
     if n == 0:
@@ -270,18 +295,14 @@ def build_unitigs(solid_limbs, solid_counts: np.ndarray,
                          np.zeros(0, np.int32), np.zeros(0, np.int32),
                          np.zeros(0, np.int8))
     dev = table.device
-    adj = torch.from_numpy(np.asarray(adjacency, np.uint8)).to(dev)
+    adj = _on(adjacency, torch.uint8, dev)
     clock = _StepClock(dev, timings)
 
     # --- oriented chains ------------------------------------------------
-    # candidate ranks: the chunks bound the 8C-row rank search and its
-    # candidates on giant tables
-    csize = chunk or (n if n <= 1 << 22 else sweep_chunk(n))
-    ranks = torch.empty((n, 8), dtype=I32, device=dev)
-    flips = torch.empty((n, 8), dtype=torch.int8, device=dev)
-    for i in range(0, n, csize):
-        ranks[i:i + csize], flips[i:i + csize] = _cand_ranks_flips(
-            table[i:i + csize], table, n, k)
+    if precomputed is None:
+        ranks, flips = cand_sweep(table, n, k, chunk)
+    else:
+        ranks, flips = precomputed
     clock("candidate_ranks")
     roots, rank, cycle_cut = _succ_cut_rank(ranks, flips, adj, n, clock)
     del ranks, flips
@@ -323,7 +344,7 @@ def build_unitigs(solid_limbs, solid_counts: np.ndarray,
     kmer_counts = torch.zeros((nb_unitigs,), dtype=I64, device=dev)
     kmer_counts.index_add_(0, uid, torch.ones_like(uid))
     sum_ab = torch.zeros((nb_unitigs,), dtype=I64, device=dev)
-    counts = torch.from_numpy(np.asarray(solid_counts, np.int64)).to(dev)
+    counts = _on(solid_counts, I64, dev)
     sum_ab.index_add_(0, uid, counts[valid])
     mean_ab = (sum_ab.to(torch.float64)
                / kmer_counts.clamp(min=1).to(torch.float64)).to(torch.float32)
@@ -331,8 +352,16 @@ def build_unitigs(solid_limbs, solid_counts: np.ndarray,
     clock("node_maps")
 
     # --- emit sequences -------------------------------------------------
-    seqs = _emit_sequences(table, k, node_unitig, node_pos, node_strand,
-                           nb_unitigs, lengths)
+    if lazy_sequences:
+        # the emit reads its own copies of the node maps, on the device:
+        # on the CPU the UnitigSet's arrays below share memory with them
+        maps = (node_unitig.clone(), node_pos.clone(), node_strand.clone())
+        seqs = LazySequences(
+            lambda: _emit_sequences(table, k, *maps, nb_unitigs, lengths),
+            lengths.cpu().numpy() + k - 1)
+    else:
+        seqs = _emit_sequences(table, k, node_unitig, node_pos, node_strand,
+                               nb_unitigs, lengths)
     clock("emit")
     clock.done()
     return UnitigSet(seqs, mean_ab.cpu().numpy(),
@@ -429,6 +458,39 @@ class PackedSequences:
     def __iter__(self):
         for i in range(len(self)):
             yield self[i]
+
+    def __eq__(self, other):
+        return list(self) == list(other)
+
+
+class LazySequences:
+    """Deferred ``_emit_sequences``: serves lengths at once (a unitig's
+    base length is nk + k - 1, no decode needed) and spells the
+    PackedSequences on first element access. Simplify's tip, EC and bulge
+    passes never spell a sequence, so their recompactions skip the emit."""
+
+    def __init__(self, emit, lengths):
+        self._emit = emit
+        self._lengths = np.asarray(lengths, np.int64)
+        self._mat = None
+
+    def _materialize(self):
+        if self._mat is None:
+            self._mat = self._emit()
+            self._emit = None
+        return self._mat
+
+    def lengths(self) -> np.ndarray:
+        return self._lengths
+
+    def __len__(self) -> int:
+        return len(self._lengths)
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    def __iter__(self):
+        return iter(self._materialize())
 
     def __eq__(self, other):
         return list(self) == list(other)

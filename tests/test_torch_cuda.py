@@ -280,3 +280,46 @@ def test_mphf_and_unitigs_on_card_match_cpu(cuda, k):
     for f in ("kmer_counts", "link_offsets", "link_targets"):
         assert np.array_equal(getattr(ua, f), getattr(ub, f)), f
     assert a.contigs()[0] == b.contigs()[0]
+
+
+def test_simplify_and_monument_on_card_match_cpu(cuda):
+    """simplify() (one candidate sweep, reused by the Monument contigs),
+    the unitig graph of the simplified graph, Monument contigs and an
+    iterative extension on the card against the same calls on the CPU, on
+    reads with 1% substitutions (tips and bulges to remove)."""
+    from gatb_core_tpu_torch import Graph
+    from gatb_core_tpu_torch.debruijn.iterative_extensions import \
+        IterativeExtensions
+
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, size=3000, dtype=np.uint8)
+    reads = genome[rng.integers(0, 2850, size=600)[:, None] + np.arange(150)]
+    hit = rng.random(reads.shape) < 0.01
+    reads = np.where(hit, (reads + rng.integers(1, 4, size=reads.shape,
+                                                dtype=np.uint8)) & 3, reads)
+    nts = np.frombuffer(b"ACTG", np.uint8)
+    seqs = [nts[r].tobytes().decode() for r in reads]
+    a = Graph.create(BankStrings(*seqs), kmer_size=21, abundance_min=2,
+                     batch_reads=64, superbatch_rows=1 << 16,
+                     mphf_kind="none", device="cuda")
+    b = Graph(21, a.solid_limbs, a.solid_counts, device="cpu")
+    R.reset_launches()
+    sa = a.simplify()
+    assert R.launches["rank_rows"] == 1          # one sweep, one chunk
+    assert vars(sa) == vars(b.simplify()) and sa.tips_removed > 0
+    assert np.array_equal(a.node_state, b.node_state)
+    for f in ("tip_removal", "bubble_removal", "ec_removal"):
+        assert getattr(a._simplifications, f) == \
+            getattr(b._simplifications, f)
+    assert a._simplifications._full_ranks.is_cuda
+    ca, cb = a.contigs(traversal="monument"), b.contigs(traversal="monument")
+    assert R.launches["rank_rows"] == 1 and ca == cb and ca[0]
+    ua, ub = a.unitig_graph(), b.unitig_graph()
+    assert list(ua.sequences) == list(ub.sequences)
+    assert ua.mean_abundance.tobytes() == ub.mean_abundance.tobytes()
+    for f in ("kmer_counts", "link_offsets", "link_targets"):
+        assert np.array_equal(getattr(ua, f), getattr(ub, f)), f
+    seed = "".join("ACTG"[c] for c in genome[100:121])
+    ea = IterativeExtensions(a).extend(seed)
+    assert vars(ea) == vars(IterativeExtensions(b).extend(seed))
+    assert ea.nb_nucleotides > 0

@@ -306,7 +306,8 @@ def test_graph_defaults_to_the_card():
     "open_bank", "BankFasta", "BankStrings", "BankAlbum", "BankComposite",
     "Sequence", "CountConfig", "CountResult", "SortingCount", "count_kmers",
     "count_kmers_multibank", "solidity_check", "Histogram", "Graph",
-    "build_bloom", "BloomFilter", "Storage", "__version__"])
+    "build_bloom", "BloomFilter", "Storage", "assemble_contigs",
+    "__version__"])
 def test_package_surface(name):
     """Every name the port has a module for comes from both packages."""
     assert hasattr(jpkg, name) and hasattr(tpkg, name)

@@ -126,7 +126,11 @@ def test_link_unitigs_and_files_match_jax(case, tmp_path):
 
 def test_graph_unitigs_and_contigs_match_jax(case):
     """Graph.unitig_graph and Graph.contigs (traversal 'simple') against
-    JAX's from the same table, and the A7 paths raise."""
+    JAX's from the same table; the paths that raised until the
+    simplification engine was ported (traversal 'monument', a graph with
+    deleted nodes) against JAX's too."""
+    from gatb_core_tpu.debruijn.graph import Graph as JGraph
+
     g, want = case
     ug = g.unitig_graph()
     assert list(ug.sequences) == list(want.sequences)
@@ -135,13 +139,17 @@ def test_graph_unitigs_and_contigs_match_jax(case):
     keep = np.asarray([len(s) for s in want.sequences]) >= g._k + 2
     assert seqs == [s for s, k_ in zip(want.sequences, keep) if k_]
     assert np.array_equal(means, want.mean_abundance[keep])
-    with pytest.raises(NotImplementedError, match="A7"):
-        g.contigs(traversal="monument")
-    g.delete_nodes_by_index(np.array([0]))
-    with pytest.raises(NotImplementedError, match="A7"):
-        g.unitig_graph()
-    with pytest.raises(NotImplementedError, match="A7"):
-        g.contigs()
+    jg = JGraph(g._k, g.solid_limbs, g.solid_counts)
+    assert g.contigs(traversal="monument") == \
+        jg.contigs(traversal="monument")
+    for x in (g, jg):
+        x.delete_nodes_by_index(np.array([0, 5]))
+    a, b = g.unitig_graph(), jg.unitig_graph()
+    assert list(a.sequences) == list(b.sequences)
+    assert np.array_equal(a.link_targets, b.link_targets)
+    assert a.mean_abundance.tobytes() == b.mean_abundance.tobytes()
+    (sa, ma), (sb, mb) = g.contigs(), jg.contigs()
+    assert sa == sb and ma.tobytes() == mb.tobytes()
     g.node_state[:] = 0
 
 
