@@ -22,11 +22,20 @@ numpy ground truth computed here:
      777,777 live rows under an all-ones padded tail, queries present,
      absent, below the first row, above the last live row, equal to the
      padding row and duplicated, no query at all, and a table whose storage
-     is off 16-byte alignment; its time at 8 x 2^20 queries on a 2^20-row
-     table (2 and 4 limbs) beside its plain version, torch.searchsorted on
-     int64 keys (2 limbs) and the co-sort of table and queries through
-     sort_u32_limbs (the JAX package's formulation), and the time of
-     neighbor_candidates for 2^20 nodes;
+     is off 16-byte alignment; n_table at every leaf-block and level
+     boundary of its B+ index (B - 1 .. B^3 + 1 rows, B rows a node), one
+     index over several query batches, the index's plain walk on the card,
+     a tall index (2^20 rows of 1 limb, 3 levels); its time at the four
+     shapes of gatb_core_tpu_torch/tools/rank_sweep.py (8 x 2^20 queries
+     on 2^20 rows of 2 and 4 limbs; the stress sweep step, 2^24 candidates
+     of 2^21 sorted nodes on a 30M-row k=31 table; 2^24 random queries on
+     that table; the candidate sweep of a 523,394-row k=63 table) with the
+     index built, its build and the one-shot call, beside its plain
+     version and torch.searchsorted on int64 keys (1-2 limbs; the found
+     rows' ranks held against its lower bound); at the first
+     shape the co-sort of table and queries through sort_u32_limbs (the
+     JAX package's formulation), and the time of neighbor_candidates for
+     2^20 nodes;
      tile_sort bit for bit against its plain version for 1, 2,
      3, 4, 5 and 9 planes (rows in registers) and 7 (the kernel's path for
      any other number), at every tile from 2 rows to the largest it takes
@@ -125,7 +134,9 @@ have launched in each (the three limb-sort kernels in the counts;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
 limb-sort kernels in each part of phase 9 and in each ``Graph.create`` of
 phase 12; rank_rows in each part of phases 10 and 11, the MPHF's fallback
-search and the unitig candidate ranks). In phase 12 ``simplify()`` with
+search and the unitig candidate ranks). The rank index of a graph's table
+is built once, in its postsolid build (phases 9 and 12's create), and
+walked again by phases 10-12 without a build. In phase 12 ``simplify()`` with
 ``contigs(traversal="monument")`` must launch rank_rows exactly once per
 chunk of one full sweep, and ``unitig_graph()`` of the simplified graph
 (a fresh Simplifications, as in the JAX package) once more per chunk. The stress counts also log the peak of device memory allocated
@@ -811,9 +822,10 @@ def rank_queries(torch, table, live: int, q: int, gen):
     return out.contiguous()
 
 
-def rank_err(R, table, queries, live: int) -> int:
-    """max |kernel - plain| over rank and found of one rank_rows call."""
-    rank, found = R.rank_rows(table, queries, live)
+def rank_err(R, table, queries, live: int, index=None) -> int:
+    """max |kernel - plain| over rank and found of one rank_rows call (with
+    the table's ``index`` where given, else a transient one)."""
+    rank, found = R.rank_rows(table, queries, live, index=index)
     ref_rank, ref_found = R.rank_rows_plain(table, queries, live)
     if queries.shape[0] == 0:
         return int(rank.shape != ref_rank.shape
@@ -856,6 +868,35 @@ def phase_rank_kernel(torch, S, R) -> int:
                 rank, found = R.rank_rows(table, edge[1], live)
                 check(not bool(found.any()) and bool((rank == -1).all()),
                       f"rank_rows: {w} limbs, the padding row was found")
+    # n_table at every leaf-block and level boundary of the index (B rows a
+    # node) under a padded tail; one index over several query batches,
+    # against the plain binary search and the plain walk of the same index
+    for w in (1, 2, 3, 4, 5, 8):
+        b = R.node_rows(w)
+        for n in (b - 1, b, b + 1, b * b - 1, b * b, b * b + 1, b ** 3 - 1,
+                  b ** 3 + 1):
+            table, live = sorted_table(torch, S, w, n, n + 7, gen)
+            index = R.RankIndex(table, live)
+            for q in (1, 1000, (1 << 16) + 5):
+                queries = torch.cat([rank_queries(torch, table, live, q, gen),
+                                     table[:live]])
+                err = max(err, rank_err(R, table, queries, live, index),
+                          rank_err(R, table, queries, live))
+                walk = R.rank_rows_indexed_plain(index, queries)
+                ref = R.rank_rows_plain(table, queries, live)
+                err = max(err, max_abs_err(walk[0], ref[0]),
+                          max_abs_err(walk[1], ref[1]))
+                n_checks += 3
+    # a tall index: 2^20 rows of 1 limb, 3 levels above the leaf blocks
+    table, live = sorted_table(torch, S, 1, 1 << 20, 1 << 20, gen)
+    index = R.RankIndex(table, live)
+    check(len(index.lengths) == 3,
+          f"rank_rows: 2^20 rows of 1 limb index into "
+          f"{len(index.lengths)} levels, not 3")
+    err = max(err, rank_err(R, table, rank_queries(torch, table, live,
+                                                   1 << 20, gen), live,
+                            index))
+    n_checks += 1
     # storage off 16-byte alignment: the wrapper hands the kernel a copy
     for w in (2, 4):
         table, live = sorted_table(torch, S, w, 1 << 12, 1 << 12, gen)
@@ -864,8 +905,10 @@ def phase_rank_kernel(torch, S, R) -> int:
         shifted = flat[1:].view_as(table)
         shifted.copy_(table)
         queries = rank_queries(torch, table, live, 1 << 12, gen)
-        err = max(err, rank_err(R, shifted, queries, live))
-        n_checks += 1
+        err = max(err, rank_err(R, shifted, queries, live),
+                  rank_err(R, shifted, queries, live,
+                           R.RankIndex(shifted, live)))
+        n_checks += 2
     R.reset_launches()
     torch.cuda.synchronize()
     log(f"phase 1 rank_rows: {n_checks} inputs, max |kernel - plain| {err}")
@@ -914,73 +957,73 @@ def rank_cosort(torch, S, table, queries, n_table: int):
 
 
 def phase_rank_timing(torch, S, R, card: str):
-    """rank_rows at 8 x 2^20 queries (half present, half random, in random
-    order) on a table of 2^20 rows, 2 and 4 limbs: the kernel, its plain
-    version, the co-sort through sort_u32_limbs and, for 2 limbs,
-    torch.searchsorted on the rows joined into int64 keys (the join made
-    before the clock; it gives the lower bound only, so it is the least a
-    version made of that call could take). The bound counts the queries
-    read once, the live table read once and 5 bytes written per query.
-    Returns ({ms, plain_ms, library_ms, bound_ms, bound_by, ...} of the
-    2-limb shape with the 4-limb and co-sort times beside, max |kernel -
-    plain|)."""
+    """rank_rows at the four shapes of gatb_core_tpu_torch/tools/
+    rank_sweep.py (CUDA events, median after warm-up): (a) 8 x 2^20
+    random-order queries, half present, on 2^20 random rows of 2 and of 4
+    limbs; (b) the stress sweep step, the candidates of 2^21 sorted nodes
+    (2^24 queries) of the canonical 31-mers of a random 30 Mbp genome (the
+    main path's shape); (c) 2^24 random-order queries, half present, on the
+    same table (node_index traffic); (d) the candidate sweep of a k=63
+    table of 523,394 rows. For each: the kernel with the table's index
+    built (``ms``), the index build (``index_ms``), the one-shot call that
+    builds a transient index (``one_shot_ms``), the plain version, and
+    torch.searchsorted on the rows joined into int64 keys at 2 limbs (the
+    join made before the clock; the lower bound only), every result held
+    against the plain version's and the found rows' ranks against that
+    lower bound. At (a) also the co-sort through
+    sort_u32_limbs (the JAX formulation) and neighbor_candidates of the
+    table. The bound counts the queries read once, the live table read
+    once and 5 bytes written per query. Returns ({ms, plain_ms,
+    library_ms, bound_ms, bound_by, index_ms} of shape (b) and every shape
+    under ``shapes``, max |kernel - plain|)."""
     from gatb_core_tpu_torch.ops.neighbor_ops import neighbor_candidates
+    from gatb_core_tpu_torch.tools import rank_sweep as RS
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(17)
-    top = torch.iinfo(torch.int64).min
-    q = 8 << 20
     res, err = {}, 0
-    for w in (2, 4):
-        table, live = sorted_table(torch, S, w, 1 << 20, 1 << 20, gen)
-        queries = rank_queries(torch, table, live, q, gen)
-        ms, out = time_ms(torch, lambda y: R.rank_rows(table, y, live),
-                          queries, fresh=False)
-        plain_ms, ref = time_ms(
-            torch, lambda y: R.rank_rows_plain(table, y, live), queries,
-            fresh=False)
-        co_ms, co = time_ms(
-            torch, lambda y: rank_cosort(torch, S, table, y, live), queries,
-            fresh=False)
-        e = max(max_abs_err(out[0], ref[0]), max_abs_err(out[1], ref[1]),
-                max_abs_err(out[0], co[0]), max_abs_err(out[1], co[1]))
-        lib_ms = None
-        if w == 2:
-            def keys_of(x):
-                return (((x[:, 0].long() & 0xFFFFFFFF) << 32)
-                        | (x[:, 1].long() & 0xFFFFFFFF)) ^ top
-
-            tkeys, qkeys = keys_of(table[:live]), keys_of(queries)
-            lib_ms, lb = time_ms(
-                torch, lambda y: torch.searchsorted(tkeys, y), qkeys,
+    for name, table, queries in RS.shapes(torch, neighbor_candidates):
+        try:
+            r = RS.measure(torch, R, table, queries)
+        except RuntimeError as e:
+            raise Failure(f"timing: {e}")
+        n, w = table.shape
+        q = queries.shape[0]
+        r["bound_ms"], r["bound_by"] = bound(q * w * 4 + n * w * 4 + q * 5,
+                                             q * (n.bit_length() + 1))
+        extra = ""
+        err = max(err, r["library_err"] or 0)
+        if name.startswith("a"):
+            live = n
+            co_ms, co = time_ms(
+                torch, lambda y: rank_cosort(torch, S, table, y, live),
+                queries, fresh=False)
+            ref = R.rank_rows_plain(table, queries, live)
+            err = max(err, max_abs_err(co[0], ref[0]),
+                      max_abs_err(co[1], ref[1]))
+            nc_ms, _ = time_ms(
+                torch, lambda y: neighbor_candidates(y, 16 * w - 1), table,
                 fresh=False)
-            e = max(e, int((lb[out[1]] != out[0][out[1]]).sum()))
-            del tkeys, qkeys, lb
-        nc_ms, _ = time_ms(
-            torch, lambda y: neighbor_candidates(y, 16 * w - 1),
-            table[:live].contiguous(), fresh=False)
-        b_ms, b_by = bound(q * w * 4 + live * w * 4 + q * 5,
-                           q * (live.bit_length() + 1))
-        log(f"time rank_rows: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"co-sort through sort_u32_limbs {co_ms:.4f} ms, library "
-            f"(torch.searchsorted of int64 keys) "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms by {b_by} ({q} queries of {w} limbs on {live} "
-            f"rows; {card}); neighbor_candidates of {live} nodes "
-            f"{nc_ms:.4f} ms; max |kernel - plain|, |kernel - co-sort| {e}")
-        res[w] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                  "bound_ms": b_ms, "bound_by": b_by, "cosort_ms": co_ms,
-                  "neighbor_candidates_ms": nc_ms}
-        err = max(err, e)
-        del table, queries, out, ref, co
+            r["cosort_ms"], r["neighbor_candidates_ms"] = co_ms, nc_ms
+            extra = (f", co-sort through sort_u32_limbs {co_ms:.4f} ms, "
+                     f"neighbor_candidates of {n} nodes {nc_ms:.4f} ms")
+            del co, ref
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"time rank_rows ({name}): {r['ms']:.4f} ms with the index "
+            f"built ({r['levels']} levels, {r['index_mib']:.2f} MiB), index "
+            f"build {r['index_ms']:.4f} ms, one-shot {r['one_shot_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library (torch.searchsorted of "
+            f"int64 keys) {lib}, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({q} queries of {w} limbs on {n} rows, "
+            f"{r['found']} found){extra}; {card}")
+        res[name] = r
+        del table, queries
     torch.cuda.empty_cache()
     check(err == 0, "timing: rank_rows disagrees with its plain version, "
           "the co-sort or torch.searchsorted")
-    times = dict(res[2])
-    times["ms_4_limbs"] = res[4]["ms"]
-    times["plain_ms_4_limbs"] = res[4]["plain_ms"]
-    times["bound_ms_4_limbs"] = res[4]["bound_ms"]
-    times["cosort_ms_4_limbs"] = res[4]["cosort_ms"]
+    times = {key: res["b"][key] for key in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by",
+                                            "index_ms", "one_shot_ms")}
+    times["shapes"] = res
     return times, err
 
 
@@ -1040,17 +1083,18 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
     err = {name: 0 for name in REPLACES}
     n_checks = 0
     # rank_rows: a sorted table of the launch's live rows under its padded
-    # tail; queries half present, half random
+    # tail, and its index; queries half present, half random
     tables = {}
     for w, cap, n_table, q in sorted(shapes["rank_rows"]):
         if (w, cap, n_table) not in tables:
             tables.clear()              # one table alive at a time
-            tables[(w, cap, n_table)] = sorted_table(torch, S, w, n_table,
-                                                     cap, gen)
-        table, live = tables[(w, cap, n_table)]
+            table, live = sorted_table(torch, S, w, n_table, cap, gen)
+            tables[(w, cap, n_table)] = (table, live,
+                                         R.RankIndex(table, live))
+        table, live, index = tables[(w, cap, n_table)]
         queries = rank_queries(torch, table, live, q, gen)
         err["rank_rows"] = max(err["rank_rows"],
-                               rank_err(R, table, queries, live))
+                               rank_err(R, table, queries, live, index))
         n_checks += 1
         del queries
     tables.clear()
@@ -1092,14 +1136,15 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
 
 def counted(S, name: str, fn, path=SORT_KERNELS):
     """Run fn with the launch counters (the limb-sort wrappers' and the
-    rank search's) at 0; require every kernel of its path to have launched.
-    Returns fn's result, the launch counts and the launch shapes."""
+    rank search's) and the rank index's build counter at 0; require every
+    kernel of its path to have launched. Returns fn's result, the counts
+    and the launch shapes."""
     from gatb_core_tpu_torch.ops import rank_search as R
 
     S.reset_launches()
     R.reset_launches()
     out = fn()
-    got = {**S.launches, **R.launches}
+    got = {**S.launches, **R.launches, **R.builds}
     shapes = {k: set(v) for k, v in
               {**S.launch_shapes, **R.launch_shapes}.items()}
     log(f"{name} launches: {got}")
@@ -1416,6 +1461,19 @@ def check_cpu_rebuild(name: str, graph, k: int) -> float:
     return secs
 
 
+def rank_candidates_err(graph) -> int:
+    """max |kernel - plain| of rank_rows over the 8 neighbour candidates
+    of every node of a graph's (canonical, so skewed) table, through the
+    graph's index."""
+    from gatb_core_tpu_torch.ops import rank_search as R
+    from gatb_core_tpu_torch.ops.neighbor_ops import neighbor_candidates
+
+    table, n = graph._padded_table(), graph.nb_nodes
+    q = R.as_rows(neighbor_candidates(table, graph._k)
+                  .reshape(-1, table.shape[1]))
+    return rank_err(R, table, q, n, graph._set.index)
+
+
 def stage_times(info: dict) -> dict:
     return {key: info[key] for key in sorted(info)
             if key.startswith("postsolid_time")}
@@ -1437,6 +1495,10 @@ def phase_postsolid_bench(tally, S, bench_path: str, truth, card: str):
         bloom_kind="neighbor", debloom_kind="cascading", mphf_kind="none",
         build_branching=True, superbatch_rows=1 << 22), path=GRAPH_KERNELS)
     wall = time.time() - t0
+    check(got["rank_index"] == 1, "9a: the table's index not built once")
+    check(rank_candidates_err(graph) == 0,
+          "9a: rank_rows disagrees with its plain version on the table's "
+          "candidates")
     peak = torch.cuda.max_memory_allocated() / 2**20
     info = graph.get_info()
     check(np.array_equal(limbs_to_u64(graph.solid_limbs), nodes),
@@ -1485,6 +1547,10 @@ def phase_postsolid_k63(tally, S, k63_path: str, card: str):
         bloom_kind="neighbor", debloom_kind="cascading", mphf_kind="none",
         build_branching=True), path=GRAPH_KERNELS)
     wall = time.time() - t0
+    check(got["rank_index"] == 1, "9b: the table's index not built once")
+    check(rank_candidates_err(graph) == 0,
+          "9b: rank_rows disagrees with its plain version on the table's "
+          "candidates")
     info = graph.get_info()
     n = graph.nb_nodes
     check(graph.solid_limbs.shape == (n, 4) and n > 1 << 16,
@@ -1560,13 +1626,16 @@ def postsolid_breakdown(torch, R, graph, nodes, card: str) -> None:
     probe_ms, in_bloom = time_ms(torch, b.contains, flat, warm=1, reps=3,
                                  fresh=False)
     rows = as_rows(flat)
-    rank_ms, (_, solid) = time_ms(torch, lambda q: R.rank_rows(table, q, n),
-                                  rows, warm=1, reps=3, fresh=False)
+    index = graph._set.index
+    rank_ms, (_, solid) = time_ms(
+        torch, lambda q: R.rank_rows(table, q, n, index=index), rows, warm=1,
+        reps=3, fresh=False)
     hit = in_bloom & ~solid
     dedup_ms, _ = time_ms(torch, lambda q: _dedup_rows(q, hit, len(q) // 8),
                           rows, warm=1, reps=3, fresh=False)
-    adj_ms, _ = time_ms(torch, lambda t: _adjacency_kernel(t, table, 31, n),
-                        nodes, warm=1, reps=3, fresh=False)
+    adj_ms, _ = time_ms(
+        torch, lambda t: _adjacency_kernel(t, table, 31, n, index), nodes,
+        warm=1, reps=3, fresh=False)
     log(f"phase 9c breakdown: Bloom build over {n} nodes ({b.size_bits} "
         f"bits, {b.n_hash} hashes, kind {b.kind}) {build_ms:.3f} ms; one "
         f"sweep step of {len(nodes)} nodes: neighbor_candidates "
@@ -1607,6 +1676,7 @@ def phase_postsolid_stress(tally, S, R, stress_fold, card: str):
     wall = time.time() - t0
     check(got["rank_rows"] == 2 * -(-29_999_950 // sweep_chunk(29_999_950)),
           "9c: rank_rows is not one launch per sweep chunk and stage")
+    check(got["rank_index"] == 1, "9c: the table's index not built once")
     peak = torch.cuda.max_memory_allocated() / 2**20
     info = graph.get_info()
     n = graph.nb_nodes
@@ -1648,7 +1718,7 @@ def phase_postsolid_stress(tally, S, R, stress_fold, card: str):
     for i in range(0, n, step):
         q = as_rows(neighbor_candidates(table[i:i + step], 31)
                     .reshape(-1, 2))
-        err = max(err, rank_err(R, table, q, n))
+        err = max(err, rank_err(R, table, q, n, graph._set.index))
         chunks += 1
         del q
     log(f"phase 9c: rank_rows against its plain version on {chunks} chunks "
@@ -1764,6 +1834,10 @@ def phase_mphf(tally, S, R, name: str, graph, card: str, sample=None):
     set_bits = int(_popcount32(m.bits).sum())
     check(m.fallback_keys.shape[0] == n - set_bits,
           f"10 {name}: fallback keys are not the keys no level placed")
+    # the BooPHF's one query builds its fallback keys' index; node_index
+    # walks the graph's
+    check(got["rank_index"] == int(m.fallback_keys.shape[0] > 0),
+          f"10 {name}: rank index builds")
     cpu_s = None
     if sample is None:
         t1 = time.time()
@@ -1777,8 +1851,10 @@ def phase_mphf(tally, S, R, name: str, graph, card: str, sample=None):
         0, n, 1 << 20)], "cuda")
     table = graph._padded_table()
     mphf_ms, a = time_ms(torch, m.rank, q, warm=1, reps=5, fresh=False)
-    rank_ms, (b, _) = time_ms(torch, lambda y: R.rank_rows(table, y, n), q,
-                              warm=1, reps=5, fresh=False)
+    index = graph._set.index
+    rank_ms, (b, _) = time_ms(
+        torch, lambda y: R.rank_rows(table, y, n, index=index), q, warm=1,
+        reps=5, fresh=False)
     check(bool((a == b).all()), f"10 {name}: MPHF and rank_rows disagree")
     log(f"phase 10 {name} MPHF: {n} keys, stage "
         f"{graph.info['postsolid_time.mphf']:.3f} s ({wall:.3f} s wall with "
@@ -1873,6 +1949,8 @@ def phase_unitigs(tally, S, name: str, graph, tmp: str, card: str):
 
     (ug, (contig_seqs, contig_means)), got = tally.counted(
         S, f"phase 11 {name} unitigs", run, path=("rank_rows",))
+    check(got["rank_index"] == 0,
+          f"11 {name}: the sweep did not walk the graph's index")
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
     t_check = time.time()
@@ -2186,14 +2264,16 @@ def phase_simplify(tally, S, name: str, tmp: str, card: str):
     peak = torch.cuda.max_memory_allocated() / 2**20
     check(got["rank_rows"] == chunks,
           f"12{name}: rank_rows is not one launch per chunk of one sweep")
+    check(got_create["rank_index"] == 1 and got["rank_index"] == 0,
+          f"12{name}: the table's index not built once")
     simp = graph._simplifications
     record = simplify_record(graph, simp, stats, contigs)
     t1 = time.time()
     ug, got_ug = tally.counted(S, f"phase 12{name} unitig_graph",
                                graph.unitig_graph, path=("rank_rows",))
     ug_s = time.time() - t1
-    check(got_ug["rank_rows"] == chunks,
-          f"12{name}: unitig_graph is not one sweep")
+    check(got_ug["rank_rows"] == chunks and got_ug["rank_index"] == 0,
+          f"12{name}: unitig_graph is not one sweep of the graph's index")
     # the same calls on the CPU
     t1 = time.time()
     cpu = Graph(k, graph.solid_limbs, graph.solid_counts, device="cpu")
@@ -2246,8 +2326,10 @@ def phase_simplify_stress(tally, S, graph, ug11, card: str):
                                    graph.simplify, path=("rank_rows",))
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
-    check(got["rank_rows"] == -(-n // sweep_chunk(n)),
-          "12c: rank_rows is not one launch per chunk of one sweep")
+    check(got["rank_rows"] == -(-n // sweep_chunk(n))
+          and got["rank_index"] == 0,
+          "12c: rank_rows is not one launch per chunk of one sweep of the "
+          "graph's index")
     check(not (graph.node_state & 1).any() and stats.tips_removed
           == stats.bulges_removed == stats.ec_removed == 0,
           "12c: simplify deleted nodes of an error-free genome")

@@ -9,7 +9,8 @@ at once:
     per-node array (abundance, node state, adjacency) is indexed by it.
 
 The search itself is ``ops/rank_search.rank_rows`` (a CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor); ``_searchsorted_limbs`` keeps
+tensor, its plain walk on a CPU tensor), through the set's own
+``RankIndex``, built once; ``_searchsorted_limbs`` keeps
 the JAX module's lower-bound function for callers that want the insertion
 point.
 """
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.rank_search import as_rows, lower_bound_rows
+from ..ops.rank_search import RankIndex, as_rows, lower_bound_rows
 
 
 def _searchsorted_limbs(table: torch.Tensor, queries: torch.Tensor,
@@ -34,15 +35,24 @@ def _searchsorted_limbs(table: torch.Tensor, queries: torch.Tensor,
 
 class SortedKmerSet:
     """Device-resident sorted k-mer set with rank/membership queries.
-    ``limbs`` is kept as contiguous (C, W) int32 storage on its device."""
+    ``limbs`` is kept as contiguous (C, W) int32 storage on its device;
+    ``index``, the ``RankIndex`` every search of the set walks, is built
+    at its first use and kept."""
 
     def __init__(self, limbs: torch.Tensor, n: int):
         self.limbs = as_rows(limbs)
         self.n = int(n)
+        self._index = None
 
     @property
     def width(self) -> int:
         return self.limbs.shape[1]
+
+    @property
+    def index(self) -> RankIndex:
+        if self._index is None:
+            self._index = RankIndex(self.limbs, self.n)
+        return self._index
 
     def rank(self, queries: torch.Tensor) -> torch.Tensor:
         """(Q, W) -> (Q,) int32: index in table if present, else -1.
@@ -52,7 +62,7 @@ class SortedKmerSet:
         from ..ops.sortops import rank_limbs
 
         rank, _ = rank_limbs(self.limbs, queries.to(self.limbs.device),
-                             self.n)
+                             self.n, index=self.index)
         return rank
 
     def contains(self, queries: torch.Tensor) -> torch.Tensor:

@@ -51,20 +51,22 @@ from ..storage.hdf5 import (STATE_ADJACENCY_DONE, STATE_BLOOM_DONE,
 
 
 def _adjacency_kernel(nodes: torch.Tensor, table: torch.Tensor, k: int,
-                      n_table=None) -> torch.Tensor:
+                      n_table=None, index=None) -> torch.Tensor:
     """8-bit adjacency masks for a batch of nodes against the solid table:
     the 8 neighbor candidates of every node, one rank search
-    (ops/sortops.rank_join_traced) and a pack of the 8 found bits. The
-    reference probes its membership oracle per neighbor
-    (Graph.cpp:3508-3610). nodes: (N, W) limbs; table: (C, W) limbs, the
-    first ``n_table`` rows live. Returns (N,) uint8 on the nodes' device."""
+    (ops/sortops.rank_join_traced, through the table's ``index`` where the
+    caller holds one) and a pack of the 8 found bits. The reference probes
+    its membership oracle per neighbor (Graph.cpp:3508-3610). nodes:
+    (N, W) limbs; table: (C, W) limbs, the first ``n_table`` rows live.
+    Returns (N,) uint8 on the nodes' device."""
     from ..ops.sortops import rank_join_traced
 
     n = nodes.shape[0]
     if n_table is None:
         n_table = table.shape[0]
     cands = neighbor_candidates(nodes, k)      # (N, 8, W)
-    _, found = rank_join_traced(table, cands.reshape(n * 8, -1), n_table)
+    _, found = rank_join_traced(table, cands.reshape(n * 8, -1), n_table,
+                                index=index)
     weights = 1 << torch.arange(8, dtype=torch.int32, device=found.device)
     return (found.reshape(n, 8).to(torch.int32) * weights[None, :]) \
         .sum(dim=1).to(torch.uint8)
@@ -215,7 +217,8 @@ class Graph:
                 deb = build_debloom(self._padded_table(), self._k,
                                     cascading=debloom_kind == "cascading",
                                     bloom_kind=bloom_kind,
-                                    device=self.device)
+                                    device=self.device,
+                                    index=self._set.index)
                 self._debloom = deb
                 self._container = BloomCfpContainer(deb)
                 self.info.update(deb.info)
@@ -401,7 +404,8 @@ class Graph:
         """The device copy of the solid table that every stage shares:
         (N, W) int32 storage. The name is the JAX package's, whose copy is
         padded to a power of two; the rank search takes the live row count
-        at run time, so this one carries no padding."""
+        at run time, so this one carries no padding. Every sweep over it
+        walks the one ``RankIndex`` of ``self._set``."""
         return self._set.limbs
 
     def adjacency_masks(self, nodes) -> np.ndarray:
@@ -409,7 +413,7 @@ class Graph:
         batch = self._as_batch(nodes)
         return _adjacency_kernel(rows_to_device(batch, self.device),
                                  self._padded_table(), self._k,
-                                 self._set.n).cpu().numpy()
+                                 self._set.n, self._set.index).cpu().numpy()
 
     def neighbors(self, node) -> dict:
         """Scalar convenience: {'out': [limbs...], 'in': [limbs...]}."""
@@ -447,7 +451,8 @@ class Graph:
                                 device=self.device)
             for i in range(0, self.nb_nodes, step):
                 masks[i:i + step] = _adjacency_kernel(
-                    table[i:i + step], table, self._k, self._set.n)
+                    table[i:i + step], table, self._k, self._set.n,
+                    self._set.index)
             self._adjacency = masks.cpu().numpy()
             self.info["postsolid_time.adjacency"] = round(_t.time() - t0, 3)
             if self.storage is not None:
@@ -577,7 +582,8 @@ class Graph:
         if not (self.node_state & 1).any():
             adj = self.precompute_adjacency()
             ug = build_unitig_graph(self._padded_table(), self.solid_counts,
-                                    adj, self._k, device=self.device)
+                                    adj, self._k, device=self.device,
+                                    index=self._set.index)
         else:
             from .simplifications import Simplifications
 

@@ -192,20 +192,27 @@ class UnitigGraph:
 
 def build_unitig_graph(solid_limbs, solid_counts: np.ndarray,
                        adjacency: np.ndarray, k: int,
-                       device="cuda") -> UnitigGraph:
+                       device="cuda", index=None) -> UnitigGraph:
     """Unitigs + links from the solid k-mer set, on ``device``
-    (``solid_limbs``: numpy rows or limb rows already there)."""
+    (``solid_limbs``: numpy rows or limb rows already there). The sweep
+    and the links walk one ``RankIndex`` of the table: ``index`` where the
+    caller holds it (the rows on the device then), else one built here."""
+    from ..ops.rank_search import held_index
+
     table = rows_to_device(solid_limbs, device)
-    us = build_unitigs(table, solid_counts, adjacency, k, device=device)
-    return link_unitigs(table, us, k, device=device)
+    index = held_index(table, table.shape[0], index)
+    us = build_unitigs(table, solid_counts, adjacency, k, device=device,
+                       index=index)
+    return link_unitigs(table, us, k, device=device, index=index)
 
 
 def link_unitigs(solid_limbs, us: UnitigSet, k: int, device="cuda",
-                 precomputed=None) -> UnitigGraph:
+                 precomputed=None, index=None) -> UnitigGraph:
     """Compute oriented unitig links from extremity-k-mer adjacency.
     ``precomputed``: (N, 8) candidate ranks and flips of ALL nodes as
     device tensors; the extremity rows are then gathered instead of
-    re-swept."""
+    re-swept (through the table's ``index`` where the caller holds
+    one)."""
     u_count = us.nb_unitigs
     if u_count == 0:
         return UnitigGraph(k, [], np.zeros(0, np.float32),
@@ -241,7 +248,8 @@ def link_unitigs(solid_limbs, us: UnitigSet, k: int, device="cuda",
                          2 * torch.arange(u_count, device=dev) + 1])
     m = last_nodes.shape[0]
     if precomputed is None:
-        ranks, flips = _cand_ranks_flips(table[last_nodes], table, n, k)
+        ranks, flips = _cand_ranks_flips(table[last_nodes], table, n, k,
+                                         index)
     else:
         ranks, flips = (x[last_nodes] for x in precomputed)
 

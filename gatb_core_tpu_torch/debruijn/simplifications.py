@@ -258,7 +258,8 @@ class Simplifications:
         (deleted rows included: liveness is applied at remap time), kept on
         the device."""
         self._full_ranks, self._full_flips = cand_sweep(
-            self.graph._padded_table(), self.graph.nb_nodes, self.k)
+            self.graph._padded_table(), self.graph.nb_nodes, self.k,
+            index=self.graph._set.index)
 
     def _chain_abundance(self, ug) -> torch.Tensor:
         """(U,) simplePathMeanAbundance of each unitig entered at an

@@ -53,7 +53,7 @@ class NodeGraphView:
                              device=graph.device)
         if n:
             r, f = precomputed if precomputed is not None else cand_sweep(
-                graph._padded_table(), n, self.k)
+                graph._padded_table(), n, self.k, index=graph._set.index)
             alive = torch.from_numpy(self.alive).to(graph.device)
             for nt in range(4):
                 # forward strand: out-slot nt; reverse strand: in-slot

@@ -256,27 +256,31 @@ def _on(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
 
 
 def cand_sweep(table: torch.Tensor, n: int, k: int,
-               chunk: int | None = None):
+               chunk: int | None = None, index=None):
     """``_cand_ranks_flips`` of every row of a device table: (ranks (n, 8)
     int32, flips (n, 8) int8) on its device. One ``rank_rows`` launch per
     chunk: the whole table up to 2^22 rows, else chunks of ``sweep_chunk``
     rows (of ``chunk`` rows where given), which bound the 8C-row search and
-    its candidates on giant tables; the result does not depend on it."""
+    its candidates on giant tables; the result does not depend on it.
+    Every chunk walks one ``RankIndex`` of the table: ``index`` where the
+    caller holds it, else one built here."""
+    from ..ops.rank_search import held_index
     from ..ops.sortops import sweep_chunk
 
     csize = chunk or (n if n <= 1 << 22 else sweep_chunk(n))
+    index = held_index(table, n, index)
     ranks = torch.empty((n, 8), dtype=I32, device=table.device)
     flips = torch.empty((n, 8), dtype=torch.int8, device=table.device)
     for i in range(0, n, csize):
         ranks[i:i + csize], flips[i:i + csize] = _cand_ranks_flips(
-            table[i:i + csize], table, n, k)
+            table[i:i + csize], table, n, k, index)
     return ranks, flips
 
 
 def build_unitigs(solid_limbs, solid_counts, adjacency, k: int,
                   chunk: int | None = None, device="cuda",
                   timings: dict | None = None, precomputed=None,
-                  lazy_sequences: bool = False) -> UnitigSet:
+                  lazy_sequences: bool = False, index=None) -> UnitigSet:
     """Compact the solid-k-mer graph into unitigs (bcalm2+bglue+links
     equivalent, UnitigsConstructionAlgorithm.cpp:90-117) on ``device``.
     ``solid_limbs`` is the sorted (N, W) uint32 table (numpy, or limb rows
@@ -287,7 +291,9 @@ def build_unitigs(solid_limbs, solid_counts, adjacency, k: int,
     the emit to the first access of a sequence (``LazySequences``).
     ``timings``: a dict that receives the milliseconds of each step
     (``candidate_ranks``, ``successor_rule``, ``cycle_cut``,
-    ``list_ranking``, ``node_maps``, ``emit``; ``_StepClock``)."""
+    ``list_ranking``, ``node_maps``, ``emit``; ``_StepClock``).
+    ``index``: the table's ``RankIndex`` for the sweep, where the caller
+    holds one."""
     table = rows_to_device(solid_limbs, device)
     n = table.shape[0]
     if n == 0:
@@ -300,7 +306,7 @@ def build_unitigs(solid_limbs, solid_counts, adjacency, k: int,
 
     # --- oriented chains ------------------------------------------------
     if precomputed is None:
-        ranks, flips = cand_sweep(table, n, k, chunk)
+        ranks, flips = cand_sweep(table, n, k, chunk, index)
     else:
         ranks, flips = precomputed
     clock("candidate_ranks")
@@ -370,15 +376,17 @@ def build_unitigs(solid_limbs, solid_counts, adjacency, k: int,
                      node_strand.cpu().numpy())
 
 
-def _cand_ranks_flips(nodes, table, n_table, k: int):
+def _cand_ranks_flips(nodes, table, n_table, k: int, index=None):
     """Rank of each of the 8 neighbor candidates of every node in the
     table (-1 if absent) and its strand flip: (ranks (C, 8) int32, flips
-    (C, 8) int8). One ``rank_rows`` search over the 8C candidates."""
+    (C, 8) int8). One ``rank_rows`` search over the 8C candidates (through
+    the table's ``index`` where the caller holds one)."""
     from ..ops.sortops import rank_join_traced
 
     cands = neighbor_candidates(nodes, k)   # (C, 8, W)
     c, _, w = cands.shape
-    pos, found = rank_join_traced(table, cands.reshape(c * 8, w), n_table)
+    pos, found = rank_join_traced(table, cands.reshape(c * 8, w), n_table,
+                                  index=index)
     ranks = torch.where(found, pos, torch.full_like(pos, -1)).reshape(c, 8)
     # strand of the neighbor: the candidate equals its canonical form iff
     # the extension's forward form is canonical; flip=1 otherwise.

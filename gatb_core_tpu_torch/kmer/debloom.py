@@ -140,18 +140,22 @@ def build_debloom(solid_limbs, k: int,
                   cascading: bool = False, user_seed: int = 0,
                   bloom_kind: str = "neighbor",
                   chunk: int | None = None,
-                  device="cuda") -> DebloomResult:
+                  device="cuda", index=None) -> DebloomResult:
     """Build Bloom + cFP over the solid set (BloomAlgorithm +
     DebloomAlgorithm equivalents) on ``device``. ``solid_limbs`` is the
     sorted (N, W) uint32 table (numpy, or limb rows already on the device).
     ``bloom_kind`` defaults to the reference graph build's main-bloom
     default (neighbor-coherent: a reference dbgh5 .h5 carries /bloom
     kind='neighbor'); ``cascading`` selects the cFP encoding (reference
-    default kind). ``chunk`` bounds the nodes per sweep step."""
+    default kind). ``chunk`` bounds the nodes per sweep step. ``index``:
+    the table's ``RankIndex`` where the caller holds one; else the sweep
+    builds one for all its steps."""
+    from ..ops.rank_search import held_index
     from ..ops.sortops import _next_pow2, sweep_chunk
 
     table = rows_to_device(solid_limbs, device)
     n = table.shape[0]
+    index = held_index(table, n, index)
     w = table.shape[1] if n else 1
     if bloom_nbits is None:
         # NBITS_PER_KMER formula (DebloomAlgorithm.cpp:628-650)
@@ -174,7 +178,8 @@ def build_debloom(solid_limbs, k: int,
             out_p, n_hit, ovf = _debloom_probe_compact(
                 table[i:i + csize], table, n, bloom.words, k=k,
                 size_bits=bloom.size_bits, n_hash=bloom.n_hash,
-                seed=user_seed, kind=bloom.kind, cap_out=cap_out)
+                seed=user_seed, kind=bloom.kind, cap_out=cap_out,
+                index=index)
             if not bool(ovf):
                 break
             cap_out *= 2
@@ -212,30 +217,30 @@ def build_debloom(solid_limbs, k: int,
 
 def _debloom_probe(nodes, table, n_table, bloom_words, *, k: int,
                    size_bits: int, n_hash: int, seed: int,
-                   kind: str = "basic"):
+                   kind: str = "basic", index=None):
     """8-extension cFP probe sweep: Bloom gather + rank search in the solid
-    table, the reference's 8 probes/solid k-mer hot loop
-    (DebloomAlgorithm.cpp:270-300). Returns (hit (8N,) bool, cands
-    (N, 8, W) int64)."""
+    table (through its ``index`` where the sweep holds one), the
+    reference's 8 probes/solid k-mer hot loop (DebloomAlgorithm.cpp:270-300).
+    Returns (hit (8N,) bool, cands (N, 8, W) int64)."""
     from ..ops.sortops import rank_join_traced
 
     cands = neighbor_candidates(nodes, k)            # (N, 8, W)
     flat = cands.reshape(-1, cands.shape[-1])
     in_bloom = _bloom_contains(bloom_words, flat, size_bits, n_hash,
                                seed, kind, k)
-    _, solid = rank_join_traced(table, flat, n_table)
+    _, solid = rank_join_traced(table, flat, n_table, index=index)
     return in_bloom & ~solid, cands
 
 
 def _debloom_probe_compact(nodes, table, n_table, bloom_words, *, k: int,
                            size_bits: int, n_hash: int, seed: int,
-                           kind: str, cap_out: int):
+                           kind: str, cap_out: int, index=None):
     """_debloom_probe + dedup/compaction of the cFP hits on the device:
     only the (W, cap_out) distinct cFP table leaves it. Returns (planes,
     n, overflow)."""
     hit, cands = _debloom_probe(nodes, table, n_table, bloom_words, k=k,
                                 size_bits=size_bits, n_hash=n_hash,
-                                seed=seed, kind=kind)
+                                seed=seed, kind=kind, index=index)
     flat = cands.reshape(-1, cands.shape[-1]).to(torch.int32)
     return _dedup_rows(flat, hit, cap_out)
 

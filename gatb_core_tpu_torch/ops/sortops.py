@@ -447,7 +447,8 @@ def merge_tables_planes(pa, ca: torch.Tensor, na, pb, cb: torch.Tensor, nb,
 # ---------------------------------------------------------------------------
 
 
-def rank_join_traced(table: torch.Tensor, queries: torch.Tensor, n_table):
+def rank_join_traced(table: torch.Tensor, queries: torch.Tensor, n_table,
+                     index=None):
     """Rank + membership of query rows in a sorted distinct-key table.
 
     table: (C, W) limbs ascending (int32 storage, or int64 zero-extended);
@@ -455,23 +456,26 @@ def rank_join_traced(table: torch.Tensor, queries: torch.Tensor, n_table):
     row is never found. Returns (rank (Q,) int32: index in the table, -1
     if absent; found (Q,) bool), in the original query order. ``n_table``
     is an int or a 0-d tensor (the kernel takes it at run time, so no
-    padded capacity is needed)."""
+    padded capacity is needed). ``index``: the table's
+    ``rank_search.RankIndex``, held by callers that search one table many
+    times (the table is then its int32 rows)."""
     from .rank_search import as_rows, rank_rows
 
-    return rank_rows(as_rows(table), as_rows(queries), int(n_table))
+    return rank_rows(as_rows(table), as_rows(queries), int(n_table),
+                     index=index)
 
 
 rank_join = rank_join_traced
 
 
 def rank_limbs(table: torch.Tensor, queries: torch.Tensor, n_table: int,
-               method: str = "auto"):
+               method: str = "auto", index=None):
     """Same contract as ``rank_join``. ``method`` is kept for name parity
     with the JAX module and accepts "auto", "join" and "binsearch": all
     three run the same search (``rank_search.rank_rows``)."""
     if method not in ("auto", "join", "binsearch"):
         raise ValueError(f"unknown rank method {method!r}")
-    return rank_join_traced(table, queries, n_table)
+    return rank_join_traced(table, queries, n_table, index=index)
 
 
 def pad_rows_pow2(table):

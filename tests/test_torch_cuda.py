@@ -166,13 +166,9 @@ def test_lsm_count_and_fetches_on_card_match_cpu(cuda):
         assert np.array_equal(got[1], whole[1])
 
 
-@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8])
-@pytest.mark.parametrize("n,cap", [(0, 4), (1, 1), (1000, 1024),
-                                   (70_000, 1 << 17)])
-def test_rank_rows_matches_plain(cuda, w, n, cap):
-    """Templated widths and the generic one (5), an empty table, a padded
-    tail; queries present, absent, duplicated, the padding row, none."""
-    g = torch.Generator().manual_seed(w * 1000 + n)
+def _rank_table(w, n, cap, g):
+    """A sorted table of up to n distinct random rows of w limbs under an
+    all-ones padded tail of cap rows (on the CPU), and its live rows."""
     rows = torch.randint(-2**31, 2**31 - 1, (w, max(n, 1)),
                          dtype=torch.int32, generator=g)
     rows = S.sort_u32_limbs_plain(rows).T[:n]
@@ -183,12 +179,30 @@ def test_rank_rows_matches_plain(cuda, w, n, cap):
     live = rows.shape[0]
     table = torch.full((cap, w), -1, dtype=torch.int32)
     table[:live] = rows
-    queries = torch.randint(-2**31, 2**31 - 1, (5000, w), dtype=torch.int32,
+    return table, live
+
+
+def _rank_queries(table, live, q, g):
+    w = table.shape[1]
+    queries = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
                             generator=g)
     if live:
-        queries[::2] = table[torch.randint(0, live, (2500,), generator=g)]
+        queries[::2] = table[torch.randint(0, live, ((q + 1) // 2,),
+                                           generator=g)]
     queries[7] = -1
     queries[9] = 0
+    return queries
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("n,cap", [(0, 4), (1, 1), (1000, 1024),
+                                   (70_000, 1 << 17)])
+def test_rank_rows_matches_plain(cuda, w, n, cap):
+    """Templated widths and the generic one (5), an empty table, a padded
+    tail; queries present, absent, duplicated, the padding row, none."""
+    g = torch.Generator().manual_seed(w * 1000 + n)
+    table, live = _rank_table(w, n, cap, g)
+    queries = _rank_queries(table, live, 5000, g)
     table, queries = table.to(cuda), queries.to(cuda)
     before = R.launches["rank_rows"]
     for q in (queries, queries[:1].contiguous(), queries[:0].contiguous()):
@@ -207,6 +221,41 @@ def test_rank_rows_matches_plain(cuda, w, n, cap):
     shifted.copy_(table)
     rank, _ = R.rank_rows(shifted, queries, live)
     assert torch.equal(rank, R.rank_rows_plain(table, queries, live)[0])
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8])
+def test_rank_rows_walks_a_held_index(cuda, w):
+    """The kernel with a held index and with a transient one against the
+    plain walk of the same index and the binary search: n_table at every
+    block and level boundary under a padded tail, one index over several
+    query batches, and a tall index (2^20 rows of 1 limb, 3 levels)."""
+    b = R.node_rows(w)
+    g = torch.Generator().manual_seed(w)
+    sizes = sorted({0, 1, b - 1, b, b + 1, b * b - 1, b * b, b * b + 1,
+                    b ** 3 - 1, b ** 3 + 1})
+    for n in sizes:
+        table, live = _rank_table(w, n, n + 5, g)
+        table = table.to(cuda)
+        index = R.RankIndex(table, live)
+        for q in (4000, 1, 130):
+            queries = _rank_queries(table.cpu(), live, max(q, 10), g)[:q]
+            queries = queries.to(cuda).contiguous()
+            ref = R.rank_rows_plain(table, queries, live)
+            for got in (R.rank_rows(table, queries, live, index=index),
+                        R.rank_rows(table, queries, live),
+                        R.rank_rows_indexed_plain(index, queries)):
+                assert torch.equal(got[0], ref[0])
+                assert torch.equal(got[1], ref[1])
+    # rows of 1 limb: 2^20 rows index into 3 levels
+    table, live = _rank_table(1, 1 << 20, 1 << 20, g)
+    table = table.to(cuda)
+    index = R.RankIndex(table, live)
+    assert len(index.lengths) == 3
+    queries = _rank_queries(table.cpu(), live, 1 << 16, g).to(cuda)
+    assert torch.equal(R.rank_rows(table, queries, live, index=index)[0],
+                       R.rank_rows_plain(table, queries, live)[0])
+    with pytest.raises(ValueError):
+        R.rank_rows(table, queries, live - 1, index=index)
 
 
 @pytest.mark.parametrize("k", [31, 63])

@@ -3,6 +3,7 @@ and collections/sortedset that call it) against the JAX package's sort-join
 and binary search: rank and found bit-equal (tolerance 0). On the CPU the
 wrapper runs ``rank_rows_plain``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,3 +163,166 @@ def test_pad_rows_sweep_chunk_and_shrink_match_jax():
         assert int(a.n) == int(b.n) == 30
     with pytest.raises(ValueError):
         T.shrink(tt, 29)
+
+
+# ---------------------------------------------------------------------------
+# The B+ index (RankIndex) and its plain walk, the kernel's CPU twin
+# ---------------------------------------------------------------------------
+
+_join_traced = jax.jit(J.rank_join_traced)
+
+
+def _boundaries(b):
+    """n_table at 0 and 1 and at every leaf-block and level boundary of a
+    node of b rows, up to the third level."""
+    return sorted({0, 1, b - 1, b, b + 1, b * b - 1, b * b, b * b + 1,
+                   b ** 3 - 1, b ** 3 + 1})
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
+def test_index_walk_matches_jax_at_every_boundary(w):
+    """RankIndex + rank_rows_indexed_plain against the JAX sort-join and
+    binary search, n_table at each block and level boundary under an
+    all-ones padded tail (the table's own rows, padding, absent rows)."""
+    b = R.node_rows(w)
+    sizes = _boundaries(b)
+    rng = np.random.default_rng(70 + w)
+    table, top = _mk_table(rng, sizes[-1], w, cap=sizes[-1] + 5)
+    tt = u32_to_torch(table)
+    q = np.concatenate([_queries(rng, table, top, w), table[:top]])
+    tq = u32_to_torch(q)
+    for n in sizes:
+        padded = table.copy()
+        padded[n:] = 0xFFFFFFFF
+        r_j, f_j = _join_traced(jnp.asarray(padded), jnp.asarray(q),
+                                jnp.int32(n))
+        tp = u32_to_torch(padded)
+        index = R.RankIndex(tp, n)
+        assert index.node == b
+        assert all(x <= b for x in index.lengths[:1])
+        rank, found = R.rank_rows_indexed_plain(index, tq)
+        assert np.array_equal(rank.numpy(), np.asarray(r_j)), n
+        assert np.array_equal(found.numpy(), np.asarray(f_j)), n
+        # the same through the wrapper, and rows past n_table whatever
+        # they hold (here the next live rows): masked by position
+        for t in (tp, tt):
+            got = R.rank_rows(t, tq, n, index=R.RankIndex(t, n))
+            assert np.array_equal(got[0].numpy(), np.asarray(r_j)), n
+        if n in (b * b - 1, b * b + 1):
+            r_b, _ = J.rank_limbs(jnp.asarray(padded), jnp.asarray(q), n,
+                                  method="binsearch")
+            assert np.array_equal(rank.numpy(), np.asarray(r_b)), n
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_index_walk_on_a_skewed_table_matches_jax(w):
+    """Many rows share their top limbs (canonical k-mers cluster): nodes
+    whose keys differ in the last limb only, long runs of one top limb."""
+    rng = np.random.default_rng(5 + w)
+    n = 3000
+    rows = np.zeros((n, w), np.uint32)
+    rows[:, 0] = rng.choice([0, 1, 0x80000000], size=n, p=[0.7, 0.2, 0.1])
+    rows[:, -1] = rng.integers(0, 2**32 - 1, size=n, dtype=np.uint64)
+    rows = np.unique(rows, axis=0)
+    n = len(rows)
+    table = np.full((n + 3, w), 0xFFFFFFFF, np.uint32)
+    table[:n] = rows
+    near = table[rng.integers(0, n, 400)].copy()
+    near[::2, -1] += 1                          # neighbours of live rows
+    q = np.concatenate([table[:n], near, _queries(rng, table, n, w)])
+    tt, tq = u32_to_torch(table), u32_to_torch(q)
+    r_j, f_j = J.rank_join(jnp.asarray(table), jnp.asarray(q), n)
+    r_b, _ = J.rank_limbs(jnp.asarray(table), jnp.asarray(q), n,
+                          method="binsearch")
+    index = R.RankIndex(tt, n)
+    rank, found = R.rank_rows_indexed_plain(index, tq)
+    assert np.array_equal(rank.numpy(), np.asarray(r_j))
+    assert np.array_equal(rank.numpy(), np.asarray(r_b))
+    assert np.array_equal(found.numpy(), np.asarray(f_j))
+
+
+def test_index_layout_and_builds():
+    """Levels top first, each a whole number of nodes padded with all-ones
+    keys; level 1 the last row of each leaf block; the rows in all; one
+    build counted per RankIndex; an index answers for its own table only,
+    and ``held_index`` checks a held one."""
+    rng = np.random.default_rng(11)
+    table, n = _mk_table(rng, 1000, 2, cap=1100)
+    tt = u32_to_torch(table)
+    R.reset_launches()
+    index = R.RankIndex(tt, n)
+    assert R.builds == {"rank_index": 1}
+    b = index.node
+    assert b == 16 and index.lengths == [-(-n // b ** 2), -(-n // b)]
+    level1 = index.rows[index.offsets[1]:index.offsets[2]]
+    last = [min((i + 1) * b, n) - 1 for i in range(index.lengths[1])]
+    root = index.rows[:index.offsets[1]]
+    assert torch.equal(root[:index.lengths[0]],
+                       level1[[min((i + 1) * b, len(last)) - 1
+                               for i in range(index.lengths[0])]])
+    assert torch.equal(level1[:len(last)], tt[last])
+    assert (level1[len(last):] == -1).all()
+    for lo, hi in zip(index.offsets, index.offsets[1:]):
+        assert (hi - lo) % b == 0
+    m = -(-n // b)                          # level-1 keys, then padding
+    assert index.offsets[-1] == len(index.rows) == b + m + -m % b
+    q = tt[:10].clone()
+    with pytest.raises(ValueError):
+        R.rank_rows(tt.clone(), q, n, index=index)     # another table
+    with pytest.raises(ValueError):
+        R.rank_rows(tt, q, n - 1, index=index)         # other live rows
+    assert R.held_index(tt, n, index) is index
+    with pytest.raises(ValueError):
+        R.held_index(tt, n - 1, index)
+    assert R.builds == {"rank_index": 1}
+    assert R.node_rows(1) == 32 and R.node_rows(3) == 8
+    assert R.node_rows(5) == 4 and R.node_rows(8) == 4
+    assert R.node_rows(9) == 2 and R.node_rows(40) == 2
+    empty = R.RankIndex(tt, 0)
+    assert empty.lengths == [] and empty.rows.shape == (0, 2)
+    assert not R.rank_rows(tt, q, 0, index=empty)[1].any()
+    R.reset_launches()
+
+
+def test_surface_with_a_held_index_matches_jax():
+    """rank_join_traced(..., index=), SortedKmerSet.rank (its index built
+    once and kept) and one cand_sweep over a held index give the JAX
+    package's answers."""
+    from gatb_core_tpu.debruijn.unitigs import _cand_ranks_flips as j_cand
+    from gatb_core_tpu.kmer.model import canonical, string_to_kmer
+    from gatb_core_tpu_torch.debruijn.unitigs import cand_sweep
+
+    rng = np.random.default_rng(8)
+    table, n = _mk_table(rng, 700, 2, cap=768)
+    q = _queries(rng, table, n, 2)
+    tt, tq = u32_to_torch(table), u32_to_torch(q)
+    r_j, f_j = J.rank_join(jnp.asarray(table), jnp.asarray(q), n)
+    index = R.RankIndex(tt, n)
+    rank, found = T.rank_join_traced(tt, tq, n, index=index)
+    assert np.array_equal(rank.numpy(), np.asarray(r_j))
+    assert np.array_equal(found.numpy(), np.asarray(f_j))
+    rank, _ = T.rank_limbs(tt, tq, n, method="binsearch", index=index)
+    assert np.array_equal(rank.numpy(), np.asarray(r_j))
+    R.reset_launches()
+    ts = TSet(tt, n)
+    for _ in range(2):
+        assert np.array_equal(ts.rank(tq).numpy(), np.asarray(r_j))
+    assert R.builds == {"rank_index": 1} and ts.index.answers(tt, n)
+    # the candidate sweep of a k=31 table: the k-mers of a random genome
+    k = 31
+    genome = "".join(rng.choice(list("ACGT"), size=400))
+    kmers = sorted({canonical(string_to_kmer(genome[i:i + k]), k)
+                    for i in range(len(genome) - k + 1)})
+    rows = np.array([[(v >> 32) & 0xFFFFFFFF, v & 0xFFFFFFFF]
+                     for v in kmers], np.uint32)
+    m = len(rows)
+    jr, jf = j_cand(jnp.asarray(rows), jnp.asarray(rows), m, k)
+    tr = u32_to_torch(rows)
+    R.reset_launches()
+    held = R.RankIndex(tr, m)
+    ranks, flips = cand_sweep(tr, m, k, chunk=64, index=held)
+    assert R.builds == {"rank_index": 1}        # no chunk built its own
+    assert np.array_equal(ranks.numpy(), np.asarray(jr))
+    assert np.array_equal(flips.numpy(), np.asarray(jf))
+    assert (ranks >= 0).sum() >= m                # neighbours are present
+    R.reset_launches()
