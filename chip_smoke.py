@@ -127,14 +127,42 @@ numpy ground truth computed here:
      sweep, each recompaction and each bulge-walker call with its
      candidates and fallbacks, peak device memory, the share of genome
      k-mers live and of error k-mers deleted, contig N50 and longest.
+ 13. the stacked merges, the linear counter and Leon: (a) 64 sorted
+     distinct-key tables of 2^18 rows from ``count_batch`` over 64 chunks
+     of the bench bank's k-mers (k=31), and 16 of 2^16 at k=63, through
+     ``merge_stacked_tree`` (two merge launches a level),
+     ``merge_stacked_tree_capped`` at the distinct count rounded up (no
+     overflow) and at half of it (overflow) and ``merge_stacked`` (one
+     sort): equal to one another, to numpy's unique of the k-mers and to
+     the same calls with the kernels' plain versions on the card; at k=31
+     their CUDA-event times beside ``torch.sort`` of the rows as int64
+     keys; (b) a ``LinearCounter`` of 200,000 x 121 bits fed the bench
+     bank's 999,959 distinct k-mers once, within 1% of that count;
+     ``estimate_distinct_kmers`` of the whole bank (logged: it scales by
+     the file size, headers included) and of its first 20,000 reads,
+     equal on the card and on the CPU; (c) Leon's device stage
+     (``leon_ref_bloom``: the count at abundance-min 2 and the neighbor
+     Bloom) on the bench bank, its bytes equal to ``_bloom_build`` on the
+     CPU, with stage time and peak device memory; (d) Leon on a cut (2,000
+     x 150 bp FASTQ reads of a 10 kbp genome, 1% substitutions): the
+     ``tools.leon`` CLI as a process on the card (``-c -gtbl``, then
+     ``-d``) round trips, its file equals ``LeonCompressor`` on the CPU
+     byte for byte, ``open_bank`` of it reads the input, and the
+     reference container's contents (``leon_ref_contents``, lossless and
+     lossy) decode in memory to the reads, headers and qualities (lossy:
+     the smoothing over a Bloom built on the CPU); the host coder's ms per
+     read each way for both formats.
 
-Phases 2-4 and 6-12 each run with the kernels' launch counters set to 0
+Phases 2-4 and 6-13 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels in the counts;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
 limb-sort kernels in each part of phase 9 and in each ``Graph.create`` of
 phase 12; rank_rows in each part of phases 10 and 11, the MPHF's fallback
-search and the unitig candidate ranks). The rank index of a graph's table
+search and the unitig candidate ranks; the two merge kernels, exactly
+twice log2(tables) times, in each stacked tree of phase 13, tile_sort in
+``merge_stacked`` and the three limb-sort kernels in its counts and Leon's
+device stage). The rank index of a graph's table
 is built once, in its postsolid build (phases 9 and 12's create), and
 walked again by phases 10-12 without a build. In phase 12 ``simplify()`` with
 ``contigs(traversal="monument")`` must launch rank_rows exactly once per
@@ -2345,6 +2373,373 @@ def phase_simplify_stress(tally, S, graph, ug11, card: str):
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the stacked merges, the linear counter and Leon
+# ---------------------------------------------------------------------------
+
+
+def bank_kmers_on_card(torch, reads: np.ndarray, k: int, rows: int):
+    """The first ``rows`` canonical k-mers of ``reads`` (read by read, as
+    extraction lays them out) as (rows, W) int32 limbs on the card."""
+    from gatb_core_tpu_torch.ops.kmer_ops import extract_kmers
+
+    out, have, step = [], 0, 20_000
+    for i in range(0, len(reads), step):
+        codes = torch.from_numpy(reads[i:i + step]).cuda()
+        kb = extract_kmers(codes, torch.ones_like(codes, dtype=torch.bool),
+                           torch.full((len(codes),), codes.shape[1],
+                                      dtype=torch.int32, device="cuda"),
+                           k, with_minimizers=False)
+        out.append(kb.kmers.reshape(-1, kb.kmers.shape[-1]).to(torch.int32))
+        have += out[-1].shape[0]
+        if have >= rows:
+            break
+    check(have >= rows, "phase 13a: too few k-mers in the bank")
+    return torch.cat(out)[:rows].contiguous()
+
+
+class plain_merges:
+    """Within the block, ops.sortops sorts and merges with the kernels'
+    plain versions (on the card's tensors)."""
+
+    def __enter__(self):
+        from gatb_core_tpu_torch.ops import limb_sort as S
+        from gatb_core_tpu_torch.ops import sortops as T
+
+        self.saved = (T.merge_sorted_runs, T.sort_u32_limbs)
+        T.merge_sorted_runs = lambda x, run: S.merge_sorted_runs_plain(x,
+                                                                       run)
+        T.sort_u32_limbs = S.sort_u32_limbs_plain
+        return self
+
+    def __exit__(self, *exc):
+        from gatb_core_tpu_torch.ops import sortops as T
+
+        T.merge_sorted_runs, T.sort_u32_limbs = self.saved
+
+
+def same_count_table(a, b) -> bool:
+    return (a.kmers.shape == b.kmers.shape
+            and bool((a.kmers == b.kmers).all())
+            and bool((a.counts == b.counts).all()) and int(a.n) == int(b.n))
+
+
+def stacked_case(tally, S, torch, reads, k: int, nb: int, cap: int,
+                 card: str, timed: bool):
+    """``nb`` tables of capacity ``cap`` from ``count_batch`` over chunks
+    of the bank's k-mers through the three stacked merges: equal to one
+    another, to numpy's unique of the k-mers and to the plain path on the
+    card; the capped tree at the distinct count rounded up (no overflow)
+    and below it (overflow). Returns the tree's launches."""
+    from gatb_core_tpu_torch.ops import sortops as T
+
+    w = (2 * k + 31) // 32
+    rows = bank_kmers_on_card(torch, reads, k, nb * cap)
+    ks, cs = [], []
+    for i in range(nb):
+        t = T.count_batch(rows[i * cap:(i + 1) * cap],
+                          torch.ones(cap, dtype=torch.bool, device="cuda"),
+                          spare_bits=(2 * k) % 32 != 0)
+        check(t.capacity == cap, "phase 13a: count_batch capacity")
+        ks.append(t.kmers)
+        cs.append(t.counts)
+    kmers, counts = torch.stack(ks), torch.stack(cs)
+    del ks, cs
+    host = rows.cpu().numpy().view(np.uint32)
+    del rows
+    if w == 2:
+        uniq, cnt = np.unique((host[:, 0].astype(np.uint64) << np.uint64(32))
+                              | host[:, 1], return_counts=True)
+        uniq = np.stack([(uniq >> np.uint64(32)).astype(np.uint32),
+                         uniq.astype(np.uint32)], axis=1)
+    else:
+        uniq, cnt = np.unique(host, axis=0, return_counts=True)
+    distinct = len(uniq)
+    name = f"phase 13a stacked merges k={k}"
+    tree, got = tally.counted(S, f"{name} tree", lambda: T.merge_stacked_tree(
+        kmers, counts), path=("merge_partition", "merge_tiles"))
+    levels = nb.bit_length() - 1
+    check(got["merge_partition"] == got["merge_tiles"] == levels
+          and got["tile_sort"] == 0,
+          f"{name}: the tree is not two merge launches a level")
+    check(int(tree.n) == distinct and tree.capacity == nb * cap
+          and np.array_equal(tree.kmers[:distinct].cpu().numpy()
+                             .view(np.uint32), uniq)
+          and np.array_equal(tree.counts[:distinct].cpu().numpy(), cnt),
+          f"{name}: the tree differs from numpy's unique")
+    cap_ok = T._next_pow2(distinct)
+    (capped, ov), got_c = tally.counted(
+        S, f"{name} capped", lambda: T.merge_stacked_tree_capped(
+            kmers, counts, cap_ok), path=("merge_partition", "merge_tiles"))
+    check(got_c["merge_tiles"] == levels and not bool(ov)
+          and capped.capacity == min(cap_ok, nb * cap)
+          and int(capped.n) == distinct
+          and bool((capped.kmers[:distinct] == tree.kmers[:distinct]).all())
+          and bool((capped.counts[:distinct]
+                    == tree.counts[:distinct]).all()),
+          f"{name}: the capped tree differs from the tree")
+    low, ov_low = T.merge_stacked_tree_capped(kmers, counts, distinct // 2)
+    check(bool(ov_low), f"{name}: the capped tree missed its overflow")
+    flat, got_s = tally.counted(S, f"{name} merge_stacked",
+                                lambda: T.merge_stacked(kmers, counts))
+    check(got_s["tile_sort"] == 1 and same_count_table(flat, tree),
+          f"{name}: merge_stacked differs from the tree")
+    with plain_merges():
+        p_tree = T.merge_stacked_tree(kmers, counts)
+        p_capped, p_ov = T.merge_stacked_tree_capped(kmers, counts, cap_ok)
+        p_low, p_ov_low = T.merge_stacked_tree_capped(kmers, counts,
+                                                      distinct // 2)
+        p_flat = T.merge_stacked(kmers, counts)
+    check(same_count_table(p_tree, tree) and same_count_table(p_capped,
+                                                               capped)
+          and same_count_table(p_low, low) and same_count_table(p_flat, flat)
+          and bool(p_ov) is bool(ov) and bool(p_ov_low) is bool(ov_low),
+          f"{name}: the kernel path differs from the plain path")
+    msg = (f"{name}: {nb} x {cap} rows, {distinct} distinct, equal to "
+           f"numpy, to one another and to the plain path; overflow at cap "
+           f"{distinct // 2}")
+    if timed:
+        top = torch.iinfo(torch.int64).min
+        keys = (((kmers[..., 0].long() & 0xFFFFFFFF) << 32)
+                | (kmers[..., 1].long() & 0xFFFFFFFF)).reshape(-1) ^ top
+        ms = {}
+        for label, fn in (
+                ("tree", lambda _: T.merge_stacked_tree(kmers, counts)),
+                ("capped", lambda _: T.merge_stacked_tree_capped(
+                    kmers, counts, cap_ok)),
+                ("merge_stacked", lambda _: T.merge_stacked(kmers, counts)),
+                ("torch.sort of the int64 keys",
+                 lambda q: torch.sort(q).values)):
+            ms[label], _ = time_ms(torch, fn, keys, warm=1, reps=5,
+                                   fresh=False)
+        msg += "; CUDA events: " + ", ".join(
+            f"{label} {v:.4f} ms" for label, v in ms.items()) + f" ({card})"
+        del keys
+    log(msg)
+    del kmers, counts, tree, capped, low, flat, p_tree, p_capped, p_low, \
+        p_flat
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_linear_counter(tally, S, torch, reads, bench_path: str, tmp: str,
+                         card: str):
+    """A LinearCounter of 200,000 x 121 bits fed each distinct k-mer of the
+    bench bank once (within 1% of the exact count), estimate_distinct_kmers
+    of the whole bank on the card (logged), and on the first 20,000 reads
+    equal on the card and on the CPU."""
+    from gatb_core_tpu_torch import count_kmers
+    from gatb_core_tpu_torch.kmer.linear_counter import (
+        LinearCounter, estimate_distinct_kmers)
+
+    res, _ = tally.counted(S, "phase 13b count", lambda: count_kmers(
+        bench_path, kmer_size=31, abundance_min=1))
+    exact = len(res.solid_kmers)
+    check(exact == 999_959, "phase 13b: distinct k-mers of the bench bank")
+    lc = LinearCounter(200_000 * 121, device="cuda")
+    lc.add(torch.from_numpy(res.solid_kmers.view(np.int32)).cuda())
+    est = lc.count()
+    check(abs(est - exact) <= 0.01 * exact and lc.is_accurate(),
+          "phase 13b: the linear count is off by more than 1%")
+    t0 = time.time()
+    whole = estimate_distinct_kmers(bench_path, 31, device="cuda")
+    t_whole = time.time() - t0
+    head = os.path.join(tmp, "head.fa")
+    with open(head, "wb") as f:
+        write_reads(f, reads[:20_000], 0)
+    on_card = estimate_distinct_kmers(head, 31, device="cuda")
+    on_cpu = estimate_distinct_kmers(head, 31, device="cpu")
+    check(isinstance(on_card, int) and on_card == on_cpu,
+          "phase 13b: estimate_distinct_kmers differs on card and CPU")
+    log(f"phase 13b linear counter: {est} for {exact} distinct "
+        f"({(est - exact) / exact:+.4%}); estimate_distinct_kmers of the "
+        f"bench bank {whole} ({whole / exact:.4f} of the exact count, the "
+        f"file-size scaling counts header bytes) in {t_whole:.3f} s; first "
+        f"20,000 reads {on_card} on card and CPU ({card})")
+    os.remove(head)
+
+
+def phase_leon_device(tally, S, torch, bench_path: str, card: str):
+    """Leon's device stage at full size: the solid count (k=31,
+    abundance-min 2) and the neighbor Bloom of the bench bank through
+    leon_ref_bloom on the card; the Bloom's bytes equal _bloom_build on
+    the CPU over the same solid table."""
+    from gatb_core_tpu_torch import count_kmers
+    from gatb_core_tpu_torch.collections.bloom import _bloom_build
+    from gatb_core_tpu_torch.compression.leon_ref import leon_ref_bloom
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    (bloom, size_bits, n_hash), _ = tally.counted(
+        S, "phase 13c leon device stage",
+        lambda: leon_ref_bloom(bench_path, 31, 2, device="cuda"))
+    t_stage = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    solid = count_kmers(bench_path, kmer_size=31, abundance_min=2) \
+        .solid_kmers
+    words = _bloom_build(torch.from_numpy(solid.view(np.int32)), None,
+                         size_bits, n_hash, 0, "neighbor", 31)
+    check(words.numpy().view(np.uint8).tobytes() == bloom.tobytes(),
+          "phase 13c: the neighbor Bloom differs from the CPU build")
+    log(f"phase 13c leon device stage: {len(solid)} solid k-mers, Bloom of "
+        f"{size_bits} bits and {n_hash} hashes equal to the CPU build; "
+        f"stage {t_stage:.3f} s, peak device memory {peak:.1f} MiB "
+        f"({card})")
+
+
+def cut_fastq(path: str, n_reads=2000, read_len=150, genome_len=10_000,
+              seed=13) -> None:
+    """Leon's cut: reads of a 10 kbp genome at ~30x with 1% substitutions,
+    a few N, qualities phred 0-40, headers 'r<i> pos:<p>'."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    starts = rng.integers(0, genome_len - read_len, n_reads)
+    reads = genome[starts[:, None] + np.arange(read_len)]
+    hit = rng.random(reads.shape) < 0.01
+    reads = np.where(hit, (reads + rng.integers(1, 4, reads.shape,
+                                                dtype=np.uint8)) & 3, reads)
+    reads = np.where(rng.random(reads.shape) < 0.001, 4, reads)
+    quals = rng.integers(33, 74, reads.shape, dtype=np.uint8)
+    nts = np.frombuffer(b"ACTGN", np.uint8)
+    with open(path, "w") as f:
+        for i in range(n_reads):
+            f.write(f"@r{i} pos:{starts[i]}\n{nts[reads[i]].tobytes().decode()}"
+                    f"\n+\n{quals[i].tobytes().decode()}\n")
+
+
+def decode_ref_blocks(c: dict, nb_reads: int):
+    """The DNA and header blocks of leon_ref_contents decoded in memory."""
+    from gatb_core_tpu_torch.compression import leon_ref as L
+
+    k = c["kmer_size"]
+    bloom = L.NeighborBloom(c["bloom_bytes"], c["bloom_size"],
+                            c["bloom_nb_hash"], k)
+    dec, model = L.RangeDecoder(c["anchors_dict"]), L.Order0Model(5)
+    anchors = []
+    for _ in range(c["nb_anchors"]):
+        v = 0
+        for _ in range(k):
+            v = (v << 2) | dec.next_byte(model)
+        anchors.append(v)
+    reads, headers = [], []
+    for i, (db, hb) in enumerate(zip(c["dna_blocks"], c["header_blocks"])):
+        n = c["dna_sizes"][2 * i + 1]
+        reads += L._DnaDecoder(k, bloom, anchors).decode_block(db, n)
+        headers += L._HeaderDecoder(c["first_header"]).decode_block(hb, n)
+    check(len(reads) == nb_reads, "phase 13d: decoded read count")
+    return reads, headers, bloom
+
+
+def phase_leon_cut(tally, S, tmp: str, card: str):
+    """Leon end to end on a cut, both formats: the CLI as a process on the
+    card (GTBL1 -c, then -d) against the input and against the compressor
+    on the CPU, open_bank of the .leon file, and the reference container's
+    contents (lossless and lossy) decoded in memory. The host coder runs
+    in this process while the CLI runs in its own. Returns the host
+    coder's ms per read by direction and format."""
+    src = os.path.join(tmp, "cut.fq")
+    cut_fastq(src)
+    procs = []
+
+    def cli(*args):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "gatb_core_tpu_torch.tools.leon",
+             "-file", *args], cwd=tmp, env=dict(os.environ, PYTHONPATH=HERE),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        return procs[-1]
+
+    try:
+        return leon_cut_checks(tally, S, src, cli, card)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+
+
+def leon_cut_checks(tally, S, src: str, cli, card: str):
+    import zlib
+
+    from gatb_core_tpu_torch.bank.fasta import BankLeon, open_bank
+    from gatb_core_tpu_torch.compression import leon_ref as L
+    from gatb_core_tpu_torch.compression.leon import LeonCompressor
+
+    orig = [(s.comment, s.data, s.quality) for s in open_bank(src)]
+    n = len(orig)
+
+    def finish(proc, what):
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0,
+              f"phase 13d: leon {what} failed: {out[-2000:]}")
+
+    ms = {}
+    proc = cli(src, "-c", "-gtbl")
+    t0 = time.time()
+    LeonCompressor(kmer_size=31, abundance_min=2, device="cpu").compress(
+        src, src + ".cpu.leon")
+    ms["GTBL1 compress (count on the CPU)"] = (time.time() - t0) * 1e3 / n
+    t0 = time.time()
+    full, _ = tally.counted(S, "phase 13d leon_ref_contents", lambda:
+                            L.leon_ref_contents(src, 31, 2, lossless=True,
+                                                device="cuda"))
+    ms["reference compress, lossless"] = (time.time() - t0) * 1e3 / n
+    t0 = time.time()
+    lossy = L.leon_ref_contents(src, 31, 2, device="cuda")
+    ms["reference compress, lossy"] = (time.time() - t0) * 1e3 / n
+    finish(proc, "-c -gtbl")
+    with open(src + ".leon", "rb") as f, open(src + ".cpu.leon", "rb") as g:
+        check(f.read() == g.read(),
+              "phase 13d: the card's GTBL1 file differs from the CPU's")
+    proc = cli(src + ".leon", "-d")
+    t0 = time.time()
+    bank = open_bank(src + ".leon")
+    got = [(s.comment, s.data, s.quality) for s in bank]
+    ms["GTBL1 decompress"] = (time.time() - t0) * 1e3 / n
+    check(isinstance(bank, BankLeon) and got == orig,
+          "phase 13d: open_bank of the .leon file differs from the input")
+    t0 = time.time()
+    reads, headers, _ = decode_ref_blocks(full, n)
+    ms["reference decompress (DNA, headers)"] = (time.time() - t0) * 1e3 / n
+    check(reads == [d for _, d, _ in orig]
+          and headers == [c for c, _, _ in orig],
+          "phase 13d: the reference blocks decode to other reads")
+    quals = "".join(zlib.decompress(b).decode() for b in full["qual_blocks"])
+    check(quals.splitlines() == [q for _, _, q in orig],
+          "phase 13d: lossless qualities differ from the input")
+    cpu_bloom, size_bits, n_hash = L.leon_ref_bloom(src, 31, 2, device="cpu")
+    bloom = L.NeighborBloom(cpu_bloom.tobytes(), size_bits, n_hash, 31)
+    smooth = [L._smooth_quals(d, q, bloom, 31) for _, d, q in orig]
+    lossy_q = "".join(zlib.decompress(b).decode()
+                      for b in lossy["qual_blocks"]).splitlines()
+    check(lossy["bloom_bytes"] == full["bloom_bytes"] == cpu_bloom.tobytes()
+          and lossy["dna_blocks"] == full["dna_blocks"]
+          and lossy["header_blocks"] == full["header_blocks"]
+          and lossy_q == smooth and lossy_q != [q for _, _, q in orig],
+          "phase 13d: lossy qualities differ from the smoothing on the CPU")
+    finish(proc, "-d")
+    check([(s.comment, s.data, s.quality)
+           for s in open_bank(src + ".d")] == orig,
+          "phase 13d: leon -d output differs from the input")
+    log(f"phase 13d leon on a cut ({n} x 150 bp FASTQ, {full['nb_anchors']} "
+        f"anchors): the CLI on the card round trips, its GTBL1 file equals "
+        f"the CPU's, open_bank and the reference blocks decode to the input;"
+        f" host coder ms per read: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" ({card})")
+    return ms
+
+
+def phase_leon_and_merges(tally, S, torch, reads, bench_path: str, tmp: str,
+                          card: str):
+    t0 = time.time()
+    stacked_case(tally, S, torch, reads, 31, 64, 1 << 18, card, timed=True)
+    stacked_case(tally, S, torch, reads, 63, 16, 1 << 16, card, timed=False)
+    phase_linear_counter(tally, S, torch, reads, bench_path, tmp, card)
+    phase_leon_device(tally, S, torch, bench_path, card)
+    phase_leon_cut(tally, S, tmp, card)
+    log(f"phase 13: {time.time() - t0:.1f} s")
+
+
 def device_events(torch, prof):
     """(name, self device microseconds, calls) of every device-side event
     (kernels and copies) of a profile, longest first."""
@@ -2490,6 +2885,7 @@ def main() -> int:
         del graphs, ugs
         for name in ERROR_BANKS:
             simplify_got[name] = phase_simplify(tally, S, name, tmp, card)
+        phase_leon_and_merges(tally, S, torch, reads, bench_path, tmp, card)
     log(f"launches in the stress count: fold {fold_got}, LSM {lsm_got}")
     log(f"launches in the postsolid builds: {graph_got}")
     log(f"launches in the MPHF builds and queries: {mphf_got}")

@@ -5,8 +5,8 @@ the JAX package's module layout and function names; the JAX package stays
 the reference it is tested against. The port covers counting (fold path
 and LSM merge chain, multibank), the whole graph build of dbgh5 (MPHF,
 Bloom, debloom, adjacency, branching, the node queries), ``Graph.load``,
-unitig compaction, simplification (tips, bulges, erroneous connections)
-and the Monument assembly:
+unitig compaction, simplification (tips, bulges, erroneous connections),
+the Monument assembly and Leon compression (both ``.leon`` formats):
 
     from gatb_core_tpu_torch import Graph, count_kmers
     res = count_kmers("reads.fa", kmer_size=31, abundance_min=3)
@@ -17,6 +17,8 @@ and the Monument assembly:
 
     python -m gatb_core_tpu_torch.tools.dbgh5 -in reads.fa -out graph.h5
     python -m gatb_core_tpu_torch.tools.dbginfo -in graph.h5
+    python -m gatb_core_tpu_torch.tools.leon -c -file reads.fastq
+    python -m gatb_core_tpu_torch.tools.leon -d -file reads.fastq.leon
 
 Tensors live on ``device="cuda"`` by default; the Pallas sort kernels of
 the JAX package are hand-written CUDA kernels here (ops/limb_sort.py), as
@@ -25,8 +27,8 @@ with nvcc at first use.
 """
 
 from .bank.fasta import (  # noqa: F401
-    BankAlbum, BankComposite, BankFasta, BankStrings, IBank, Sequence,
-    open_bank)
+    BankAlbum, BankComposite, BankFasta, BankFastaWriter, BankSplitter,
+    BankStrings, IBank, Sequence, open_bank)
 from .collections.bloom import BloomFilter, build_bloom  # noqa: F401
 from .debruijn.graph import Graph  # noqa: F401
 from .debruijn.traversal import assemble_contigs  # noqa: F401

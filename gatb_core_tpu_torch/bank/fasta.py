@@ -190,6 +190,109 @@ class BankAlbum(BankComposite):
         super().__init__(banks)
 
 
+class BankRandom(IBank):
+    """Random sequence generator bank (gatb-core BankRandom.hpp)."""
+
+    def __init__(self, nb_sequences: int, length: int, seed: int = 0):
+        self.nb = nb_sequences
+        self.length = length
+        self.seed = seed
+
+    def __iter__(self) -> Iterator[Sequence]:
+        rng = np.random.default_rng(self.seed)
+        nts = np.frombuffer(b"ACTG", dtype=np.uint8)
+        for i in range(self.nb):
+            data = nts[rng.integers(0, 4, self.length)].tobytes() \
+                .decode("ascii")
+            yield Sequence(f"random_{i}", data, None, i)
+
+    def get_size(self) -> int:
+        return self.nb * self.length
+
+
+class BankLeon(IBank):
+    """Bank over a Leon-compressed file (gatb-core BankLeon registry
+    entry, bank/impl/Bank.cpp:51): decompresses lazily on iteration."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._cache = None
+
+    def _load(self):
+        if self._cache is None:
+            from ..compression.leon import LeonDecompressor
+
+            self._cache = LeonDecompressor().decompress(self.path)
+        return self._cache
+
+    def __iter__(self) -> Iterator[Sequence]:
+        return iter(self._load())
+
+    def get_size(self) -> int:
+        return sum(len(s) for s in self._load())
+
+
+class BankSplitter(IBank):
+    """Splits a read of a reference sequence into overlapping reads
+    (gatb-core BankSplitter.hpp — used to synthesize read sets in tests)."""
+
+    def __init__(self, reference: str, read_size: int, overlap: int,
+                 coverage: int = 1):
+        self.reference = reference
+        self.read_size = read_size
+        self.overlap = overlap
+        self.coverage = coverage
+
+    def __iter__(self) -> Iterator[Sequence]:
+        idx = 0
+        step = self.read_size - self.overlap
+        for _ in range(self.coverage):
+            pos = 0
+            while pos + self.read_size <= len(self.reference):
+                yield Sequence(f"split_{idx}",
+                               self.reference[pos:pos + self.read_size],
+                               None, idx)
+                idx += 1
+                pos += step
+
+    def get_size(self) -> int:
+        return sum(len(s.data) for s in self)
+
+
+class BankFastaWriter:
+    """FASTA/FASTQ writer (BankFasta's writer side, used by the reference
+    for unitig/glue outputs). Line-wraps FASTA at ``width`` chars."""
+
+    def __init__(self, path: str, width: int = 0):
+        self.path = path
+        self.width = width
+        self._f = gzip.open(path, "wt") if path.endswith(".gz") \
+            else open(path, "w")
+
+    def insert(self, seq: Sequence) -> None:
+        if seq.quality is not None:
+            self._f.write(f"@{seq.comment}\n{seq.data}\n+\n{seq.quality}\n")
+        else:
+            self._f.write(f">{seq.comment}\n")
+            if self.width:
+                for i in range(0, len(seq.data), self.width):
+                    self._f.write(seq.data[i:i + self.width] + "\n")
+            else:
+                self._f.write(seq.data + "\n")
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def open_bank(uri) -> IBank:
     """Bank registry: URI -> bank (gatb-core Bank::open, bank/impl/Bank.cpp:49-52).
 
@@ -201,8 +304,7 @@ def open_bank(uri) -> IBank:
         return BankComposite([open_bank(u) for u in uri])
     first = uri.split(",")[0]
     if first.endswith(".leon"):
-        raise NotImplementedError(
-            "Leon banks are not ported to gatb_core_tpu_torch yet")
+        return BankLeon(first)
     if first.endswith(".txt") and os.path.exists(first):
         with open(first) as f:
             head = f.read(256).lstrip()

@@ -104,3 +104,30 @@ class Histogram:
         """(index, abundance) rows like the reference 'histogram' dataset."""
         idx = np.arange(self.max_value + 1, dtype=np.uint64)
         return np.stack([idx, self.bins], axis=1)
+
+
+@dataclass
+class Histogram2D:
+    """2D abundance histogram for two-bank inputs (IHistogram/Histogram2D,
+    tools/misc/impl/Histogram.hpp: bin [a0][a1] counts distinct kmers with
+    abundance a0 in bank 0 and a1 in bank 1, both clamped at max_value)."""
+
+    max_value: int = 1000
+    bins: np.ndarray = field(default=None)  # type: ignore[assignment]
+
+    def __post_init__(self):
+        if self.bins is None:
+            self.bins = np.zeros(
+                (self.max_value + 1, self.max_value + 1), np.uint64)
+
+    def add_counts(self, counts_per_bank: np.ndarray) -> None:
+        """counts_per_bank: (N, 2) per-distinct-kmer abundances."""
+        c = np.clip(counts_per_bank.astype(np.int64), 0, self.max_value)
+        flat = c[:, 0] * (self.max_value + 1) + c[:, 1]
+        self.bins += np.bincount(
+            flat, minlength=(self.max_value + 1) ** 2) \
+            .reshape(self.max_value + 1, self.max_value + 1) \
+            .astype(np.uint64)
+
+    def merge(self, other: "Histogram2D") -> None:
+        self.bins += other.bins

@@ -63,6 +63,14 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double)]
         lib.fastx_close.restype = None
         lib.fastx_close.argtypes = [ctypes.c_void_p]
+        lib.fastx_open_reader.restype = ctypes.c_void_p
+        lib.fastx_open_reader.argtypes = [ctypes.c_char_p]
+        lib.fastx_next_seq.restype = ctypes.c_int64
+        lib.fastx_next_seq.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                       ctypes.c_int64,
+                                       ctypes.POINTER(ctypes.c_char_p)]
+        lib.fastx_reader_close.restype = None
+        lib.fastx_reader_close.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -147,4 +155,40 @@ class NativeBatcher:
         if self._h:
             self.stats_full()    # cache before the handle is freed
             self._lib.fastx_close(self._h)
+            self._h = None
+
+
+class NativeSeqReader:
+    """Sequence-payload iterator over a FASTA/FASTQ path (native parse)."""
+
+    def __init__(self, path: str, initial_cap: int = 1 << 16):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native fastx library unavailable")
+        self._lib = lib
+        self._h = lib.fastx_open_reader(path.encode())
+        if not self._h:
+            raise FileNotFoundError(path)
+        self._cap = initial_cap
+        self._buf = ctypes.create_string_buffer(self._cap)
+
+    def __iter__(self):
+        lib = self._lib
+        big = ctypes.c_char_p()
+        try:
+            while True:
+                n = lib.fastx_next_seq(self._h, self._buf, self._cap,
+                                       ctypes.byref(big))
+                if n == -1:
+                    break
+                if n == -2:
+                    yield (big.value or b"").decode("ascii")
+                    continue
+                yield self._buf.raw[:n].decode("ascii")
+        finally:
+            self.close()
+
+    def close(self):
+        if self._h:
+            self._lib.fastx_reader_close(self._h)
             self._h = None

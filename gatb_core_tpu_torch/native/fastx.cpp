@@ -289,4 +289,30 @@ void fastx_stats_full(void* h, int64_t* nb_seqs, int64_t* total_size,
 
 void fastx_close(void* h) { delete static_cast<Batcher*>(h); }
 
+// Plain record interface (Sequence-level iteration): returns the length of
+// the next sequence copied into `out` (capacity `cap`), -1 at EOF, -2 if the
+// sequence exceeds cap (`*big` then points at it until the next call).
+void* fastx_open_reader(const char* path) {
+  FastxReader* r = new FastxReader(path);
+  if (!r->ok()) {
+    delete r;
+    return nullptr;
+  }
+  return r;
+}
+
+int64_t fastx_next_seq(void* h, char* out, int64_t cap, char** big) {
+  static thread_local std::string seq;
+  FastxReader* r = static_cast<FastxReader*>(h);
+  if (!r->next(seq)) return -1;
+  if ((int64_t)seq.size() <= cap) {
+    std::memcpy(out, seq.data(), seq.size());
+    return (int64_t)seq.size();
+  }
+  *big = const_cast<char*>(seq.data());
+  return -2;
+}
+
+void fastx_reader_close(void* h) { delete static_cast<FastxReader*>(h); }
+
 }

@@ -1,7 +1,7 @@
 """Sort / distinct-reduce primitives over limb-plane k-mer keys.
 
-Port of gatb_core_tpu/ops/sortops.py without its stacked merges (lines
-227-437): the counting half (lines 52-224 and 439-823) and, at the end of
+Port of gatb_core_tpu/ops/sortops.py: the counting half (lines 52-224 and
+439-823), the stacked merges (lines 140 and 225-420) and, at the end of
 the file, the rank search of the graph stages (lines 825-966). In the
 counting half k-mers ride as one (P, N) int32 tensor of uint32 limb planes
 (plane 0 most significant, see ops/limb_sort.py), sorted by the
@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from .bitpack import as_u32_i64
 from .limb_sort import as_planes, merge_sorted_runs, sort_u32_limbs
 
 I32 = torch.int32
@@ -178,6 +179,216 @@ def merge_tables(a: CountTable, b: CountTable) -> CountTable:
                       torch.arange(b.capacity, device=dev) < b.n])
     sk, si, sc = sort_by_kmer(kmers, ~live, counts)
     return count_sorted(sk, si, weights=sc)
+
+
+def _run_starts(sorted_kmers: torch.Tensor,
+                inv: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of first element of each distinct-valid-kmer run."""
+    neq_prev = (sorted_kmers[1:] != sorted_kmers[:-1]).any(dim=-1)
+    one = torch.ones((1,), dtype=torch.bool, device=sorted_kmers.device)
+    return torch.cat([one, neq_prev]) & ~inv
+
+
+def _lex_lt_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lexicographic a < b over the last (limb) axis, limbs compared as
+    uint32 (int32 storage or zero-extended int64)."""
+    a, b = as_u32_i64(a), as_u32_i64(b)
+    lt = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    eq = torch.ones(a.shape[:-1], dtype=torch.bool, device=a.device)
+    for j in range(a.shape[-1]):
+        lt = lt | (eq & (a[..., j] < b[..., j]))
+        eq = eq & (a[..., j] == b[..., j])
+    return lt
+
+
+# ---------------------------------------------------------------------------
+# Stacked merges (the JAX module's lines 225-420): per-batch sorted tables,
+# (NB, C, W) limbs and (NB, C) counts, merged into one table on the device.
+# The JAX package merges pairs with a bitonic network under ``vmap``; here
+# the tables lie end to end as W + 1 limb planes and every level of the tree
+# is one ``merge_sorted_runs`` (two kernel launches) over all pairs at once.
+# The count rides as the least significant key, stored as its bitwise NOT:
+# a row of count 0 (padding) is then all-ones in every plane, the
+# kernels' sentinel, and sorts behind every live row, also behind a live
+# all-ones k-mer. Inside a run of equal keys the counts come in another
+# order than the JAX network's (descending here); every caller sums them,
+# and with distinct keys inside each table the order is total.
+# ---------------------------------------------------------------------------
+
+
+def _stacked_planes(kmers: torch.Tensor, counts: torch.Tensor, nb2: int,
+                    c2: int, mask: bool = True) -> torch.Tensor:
+    """(NB, C, W) limbs + (NB, C) counts -> (W + 1, nb2 * c2) int32 planes:
+    table i at rows [i * c2, i * c2 + C), then the key limbs, then ~count;
+    every padding row all-ones, and with ``mask`` the keys of rows with
+    count <= 0 too. A table of distinct keys stays sorted by this order."""
+    nb, c_len, w = kmers.shape
+    kmers, counts = kmers.to(I32), counts.to(I32)
+    if mask:
+        live = counts > 0
+        kmers = torch.where(live[..., None], kmers, SENTINEL)
+        counts = torch.where(live, counts, 0)
+    planes = torch.full((w + 1, nb2, c2), SENTINEL, dtype=I32,
+                        device=kmers.device)
+    planes[:w, :nb, :c_len] = kmers.permute(2, 0, 1)
+    planes[w, :nb, :c_len] = torch.bitwise_not(counts)
+    return planes.view(w + 1, nb2 * c2)
+
+
+def _reduce_stacked(planes: torch.Tensor) -> CountTable:
+    """Distinct reduce of merged stacked planes (``_stacked_planes``
+    layout): live rows lead, their counts are summed per key."""
+    w = planes.shape[0] - 1
+    counts = torch.bitwise_not(planes[w])
+    idx = torch.arange(planes.shape[1], device=planes.device)
+    si = idx >= (counts > 0).sum()
+    out_p, cnt, n, _ = count_sorted_planes(planes[:w], si, weights=counts)
+    return CountTable(out_p.T.contiguous(), cnt, n)
+
+
+def bitonic_merge_pair(ka, ca, kb, cb):
+    """Merge two *sorted* (C, W) tables + (C,) counts into a sorted
+    (2C, W) table and its (2C,) counts: one ``merge_sorted_runs`` of the
+    two tables as limb planes with ~count as the least significant key
+    (the JAX function is a bitonic merge network; the name stays). A C
+    that is no power of two is padded with all-ones rows, which sort
+    behind every row of the tables and are cut off. Keys come out as the
+    JAX network gives them; counts inside a run of equal keys may come in
+    another order."""
+    c_len, w = ka.shape
+    c2 = _next_pow2(c_len)
+    planes = _stacked_planes(torch.stack([ka, kb]), torch.stack([ca, cb]),
+                             2, c2, mask=False)
+    out = merge_sorted_runs(planes, c2)[:, :2 * c_len]
+    return (out[:w].T.contiguous(),
+            torch.bitwise_not(out[w]).to(ca.dtype))
+
+
+def merge_stacked_tree(kmers: torch.Tensor, counts: torch.Tensor,
+                       spare_bits: bool = False) -> CountTable:
+    """Device global merge of per-batch *sorted* tables through a merge
+    tree and one final distinct reduce.
+
+    kmers: (NB, C, W) sorted tables, counts: (NB, C); rows of count 0 are
+    padding. C and NB are padded to powers of two with all-ones rows and
+    tables; each of the log2(NB) levels is one merge level over every pair
+    of tables (two kernel launches). Returns a CountTable of capacity
+    next_pow2(NB) * next_pow2(C), as the JAX function does. Padding rows
+    become all-ones sentinels whatever ``spare_bits`` says (the JAX
+    function masks them only without spare bits and otherwise requires
+    them to be sentinels already)."""
+    nb, c_len, w = kmers.shape
+    c2, nb2 = _next_pow2(c_len), _next_pow2(nb)
+    planes = _stacked_planes(kmers, counts, nb2, c2)
+    run = c2
+    while run < planes.shape[1]:
+        planes = merge_sorted_runs(planes, run)
+        run *= 2
+    return _reduce_stacked(planes)
+
+
+def _dedup_compact_planes(planes: torch.Tensor, cap_out: int):
+    """``_dedup_compact`` over a batch of tables in the stacked-plane
+    layout: planes (W + 1, B, n), each table sorted, ~count in the last
+    plane. Adjacent equal live keys (runs of at most 2) are summed into
+    the first, then the live rows of each table are compacted to its front
+    by an exclusive prefix count of the dead rows; rows past cap_out are
+    dropped. Returns (planes (W + 1, B, cap_out), n_live (B,), overflow
+    (B,))."""
+    P, B, n = planes.shape
+    dev = planes.device
+    keys = planes[:-1]
+    c = torch.bitwise_not(planes[-1])
+    live = c > 0
+    eq_next = (keys[:, :, 1:] == keys[:, :, :-1]).all(dim=0) \
+        & live[:, 1:] & live[:, :-1]
+    no = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    absorb = torch.cat([eq_next, no], dim=1)
+    c_next = torch.cat([c[:, 1:], torch.zeros((B, 1), dtype=I32,
+                                              device=dev)], dim=1)
+    c = c + torch.where(absorb, c_next, 0)
+    dead = torch.cat([no, eq_next], dim=1) | ~live
+    dead_i = dead.to(I32)
+    idx = torch.arange(n, dtype=I32, device=dev)
+    dest = idx - (torch.cumsum(dead_i, dim=1, dtype=I32) - dead_i)
+    n_live = (n - dead_i.sum(dim=1)).to(I32)
+    dest = torch.where(dead | (dest >= cap_out), cap_out, dest).long()
+    dest = (dest + torch.arange(B, device=dev)[:, None]
+            * (cap_out + 1)).reshape(-1)
+    src = torch.cat([keys, torch.bitwise_not(c)[None]]).reshape(P, B * n)
+    out = torch.full((P, B, cap_out + 1), SENTINEL, dtype=I32, device=dev)
+    out.view(P, B * (cap_out + 1)).index_copy_(1, dest, src)
+    return out[:, :, :cap_out], n_live, n_live > cap_out
+
+
+def _dedup_compact(k: torch.Tensor, c: torch.Tensor, cap_out: int):
+    """Collapse adjacent equal-key runs (length <= 2) of a sorted table and
+    compact live rows to the front of a ``cap_out``-capacity table.
+
+    Requires: k sorted ascending, padding rows have c == 0, and every live
+    key appears at most twice (true when merging two distinct-key tables).
+    Returns (kmers (cap_out, W), counts (cap_out,), n_live, overflow)."""
+    n, w = k.shape
+    planes = torch.cat([k.to(I32).T, torch.bitwise_not(c.to(I32))[None]])
+    out, n_live, ov = _dedup_compact_planes(planes[:, None, :], cap_out)
+    return (out[:w, 0].T.contiguous(), torch.bitwise_not(out[w, 0]),
+            n_live[0], ov[0])
+
+
+def merge_stacked_tree_capped(kmers: torch.Tensor, counts: torch.Tensor,
+                              cap: int):
+    """Capacity-bounded device merge of per-batch *distinct-key* tables.
+
+    Same contract as merge_stacked_tree, plus: every input table must have
+    distinct keys (count_batch output satisfies this) and the global number
+    of distinct kmers must fit in ``cap`` (from the configuration plan's
+    distinct-kmer estimate, ConfigurationAlgorithm.cpp:308-319). Each merge
+    level dedups equal keys (run length <= 2) and compacts every table back
+    to min(2 * its length, next_pow2(cap)) rows, batched over the level's
+    tables, so tables stop growing once they reach the cap. Returns
+    (CountTable, overflow); on overflow the result is invalid and the
+    caller must fall back to merge_stacked_tree."""
+    nb, c_len, w = kmers.shape
+    c2, nb2 = _next_pow2(c_len), _next_pow2(nb)
+    cap2 = _next_pow2(cap)
+    planes = _stacked_planes(kmers, counts, nb2, c2)
+    length = c2
+    if nb2 == 1:  # single table: dedup no-op, normalize capacity
+        planes, _, ov = _dedup_compact_planes(
+            planes.view(w + 1, 1, c2), min(c2, cap2))
+        overflow = ov[0]
+    else:
+        overflow = torch.zeros((), dtype=torch.bool, device=kmers.device)
+        while planes.shape[1] > length:
+            merged = merge_sorted_runs(planes, length)
+            pairs = merged.shape[1] // (2 * length)
+            length = min(2 * length, cap2)
+            planes, _, ov = _dedup_compact_planes(
+                merged.view(w + 1, pairs, -1), length)
+            planes = planes.reshape(w + 1, pairs * length)
+            overflow = overflow | ov.any()
+    planes = planes.reshape(w + 1, -1)
+    cnt = torch.bitwise_not(planes[w])
+    return CountTable(planes[:w].T.contiguous(), cnt,
+                      (cnt > 0).sum().to(I32)), overflow
+
+
+def merge_stacked(kmers: torch.Tensor, counts: torch.Tensor,
+                  spare_bits: bool = False) -> CountTable:
+    """Merge stacked per-batch tables fully on device.
+
+    kmers: (NB, C, W) per-batch tables (padding rows have count 0),
+    counts: (NB, C). One ``sort_u32_limbs`` of all rows (padded to a power
+    of two with all-ones rows, which sort behind them) with ~count as the
+    least significant key, then the distinct reduce. Returns a CountTable
+    of capacity NB * C, as the JAX function does. ``spare_bits`` changes
+    nothing: padding rows are all-ones in every plane either way (the JAX
+    function sorts a validity key first without spare bits)."""
+    nb, c_len, w = kmers.shape
+    n = nb * c_len
+    planes = _stacked_planes(kmers.reshape(1, n, w), counts.reshape(1, n),
+                             1, _next_pow2(max(n, 2)))
+    return _reduce_stacked(sort_u32_limbs(planes)[:, :n].contiguous())
 
 
 def _run_stats(planes: torch.Tensor, inv: torch.Tensor):

@@ -372,3 +372,115 @@ def test_simplify_and_monument_on_card_match_cpu(cuda):
     ea = IterativeExtensions(a).extend(seed)
     assert vars(ea) == vars(IterativeExtensions(b).extend(seed))
     assert ea.nb_nucleotides > 0
+
+
+def _stacked_tables(nb, rows, w, cap, seed):
+    """nb sorted distinct-key tables of capacity cap (int32 limb storage,
+    all-ones padding with count 0) and their union's distinct count."""
+    rng = np.random.default_rng(seed)
+    ks = np.full((nb, cap, w), -1, np.int32)
+    cs = np.zeros((nb, cap), np.int32)
+    for i in range(nb):
+        raw = rng.integers(0, 1 << 32, size=(rows, w), dtype=np.uint64) \
+            .astype(np.uint32)
+        raw[:, 0] &= 0xFF                   # overlap between the tables
+        uniq, cnt = np.unique(raw, axis=0, return_counts=True)
+        ks[i, :len(uniq)] = uniq.view(np.int32)
+        cs[i, :len(uniq)] = cnt
+    flat = ks.reshape(-1, w)[cs.reshape(-1) > 0]
+    return ks, cs, len(np.unique(flat, axis=0))
+
+
+@pytest.mark.parametrize("nb,w", [(8, 2), (5, 4), (16, 1)])
+def test_stacked_merges_on_card_match_plain(cuda, nb, w):
+    """The three stacked merges on the card (merge levels and the sort on
+    the kernels) equal their runs on the CPU (the plain versions), and one
+    another; the tree launches two merge kernels per level."""
+    from gatb_core_tpu_torch.ops import sortops as T
+
+    ks, cs, distinct = _stacked_tables(nb, 3000, w, 4096, nb + w)
+    kc, cc = torch.from_numpy(ks).cuda(), torch.from_numpy(cs).cuda()
+    kh, ch = torch.from_numpy(ks), torch.from_numpy(cs)
+
+    def same(a, b):
+        return (torch.equal(a.kmers.cpu(), b.kmers.cpu())
+                and torch.equal(a.counts.cpu(), b.counts.cpu())
+                and int(a.n) == int(b.n))
+
+    S.reset_launches()
+    tree = T.merge_stacked_tree(kc, cc)
+    levels = (T._next_pow2(nb)).bit_length() - 1
+    assert S.launches["merge_tiles"] == S.launches["merge_partition"] \
+        == levels
+    assert same(tree, T.merge_stacked_tree(kh, ch))
+    assert int(tree.n) == distinct
+    for cap, overflow in ((distinct, False), (distinct // 2, True)):
+        got, ov = T.merge_stacked_tree_capped(kc, cc, cap)
+        want, ov_h = T.merge_stacked_tree_capped(kh, ch, cap)
+        assert bool(ov) is bool(ov_h) is overflow
+        assert same(got, want)
+    n = int(tree.n)
+    got, _ = T.merge_stacked_tree_capped(kc, cc, distinct)
+    assert torch.equal(got.kmers[:n].cpu(), tree.kmers[:n].cpu())
+    S.reset_launches()
+    flat = T.merge_stacked(kc, cc)
+    assert S.launches["tile_sort"] == 1
+    assert same(flat, T.merge_stacked(kh, ch))
+    assert torch.equal(flat.kmers[:n].cpu(), tree.kmers[:n].cpu())
+    assert torch.equal(flat.counts[:n].cpu(), tree.counts[:n].cpu())
+
+
+def _leon_fastq(path, n_reads=300, genome_len=3000, read_len=100, seed=3):
+    rng = np.random.default_rng(seed)
+    genome = "".join(rng.choice(list("ACGT"), size=genome_len))
+    with open(path, "w") as f:
+        for i in range(n_reads):
+            s = int(rng.integers(0, genome_len - read_len))
+            r = list(genome[s:s + read_len])
+            if i % 9 == 0:
+                r[int(rng.integers(0, read_len))] = "N"
+            q = "".join(chr(int(c)) for c in rng.integers(33, 74, read_len))
+            f.write(f"@r{i} pos:{s}\n{''.join(r)}\n+\n{q}\n")
+    return str(path)
+
+
+def test_leon_on_card_matches_cpu(cuda, tmp_path):
+    """The GTBL1 file of a count on the card equals the one of a count on
+    the CPU, byte for byte; the reference container's contents (its Bloom
+    built on the card) equal the CPU's, lossy and lossless."""
+    from gatb_core_tpu_torch.compression.leon import (LeonCompressor,
+                                                      LeonDecompressor)
+    from gatb_core_tpu_torch.compression.leon_ref import leon_ref_contents
+
+    src = _leon_fastq(tmp_path / "r.fq")
+    S.reset_launches()
+    LeonCompressor(kmer_size=21, device="cuda").compress(
+        src, str(tmp_path / "card.leon"))
+    assert S.launches["tile_sort"] > 0
+    LeonCompressor(kmer_size=21, device="cpu").compress(
+        src, str(tmp_path / "cpu.leon"))
+    card = open(tmp_path / "card.leon", "rb").read()
+    assert card == open(tmp_path / "cpu.leon", "rb").read()
+    seqs = LeonDecompressor().decompress(str(tmp_path / "card.leon"))
+    assert len(seqs) == 300
+    for lossless in (False, True):
+        assert leon_ref_contents(src, 21, lossless=lossless,
+                                 device="cuda") == \
+            leon_ref_contents(src, 21, lossless=lossless, device="cpu")
+
+
+def test_linear_counter_on_card_matches_cpu(cuda, tmp_path):
+    from gatb_core_tpu_torch.kmer.linear_counter import (
+        LinearCounter, estimate_distinct_kmers)
+
+    rng = np.random.default_rng(2)
+    limbs = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (5000, 2),
+                                          dtype=np.int64).astype(np.int32))
+    valid = torch.from_numpy(rng.random(5000) < 0.9)
+    a, b = LinearCounter(40009, "cuda"), LinearCounter(40009, "cpu")
+    a.add(limbs.cuda(), valid.cuda())
+    b.add(limbs, valid)
+    assert torch.equal(a._bits.cpu(), b._bits) and a.count() == b.count()
+    src = _leon_fastq(tmp_path / "r.fq")
+    assert estimate_distinct_kmers(src, 31, device="cuda") == \
+        estimate_distinct_kmers(src, 31, device="cpu")

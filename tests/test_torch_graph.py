@@ -304,7 +304,7 @@ def test_graph_defaults_to_the_card():
 
 @pytest.mark.parametrize("name", [
     "open_bank", "BankFasta", "BankStrings", "BankAlbum", "BankComposite",
-    "Sequence", "CountConfig", "CountResult", "SortingCount", "count_kmers",
+    "BankSplitter", "BankFastaWriter", "Sequence", "CountConfig", "CountResult", "SortingCount", "count_kmers",
     "count_kmers_multibank", "solidity_check", "Histogram", "Graph",
     "build_bloom", "BloomFilter", "Storage", "assemble_contigs",
     "__version__"])
