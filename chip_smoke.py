@@ -12,6 +12,13 @@ the device time summed over kernels and copies, the busy share (device
 time over wall time) and the kernels by device time; the full lists go to
 ``DIR/profile_<path>.txt`` (default ``chiprun_out``).
 
+    python3 chip_smoke.py --mesh-sizing [--reads 6000000]
+
+With ``--mesh-sizing`` it counts the stress bank through
+count_kmers_distributed at one rank over NCCL, with phase 14a's
+``distinct_ratio_hint=0.05`` and with the default 0.3, and prints each
+run's wall time, peak device memory, final capacities and replays.
+
 Builds the CUDA kernels of the port from this checkout (nvcc), holds each
 against its plain PyTorch version, then counts k-mers through the port's
 public entry points on synthetic banks and checks every result against a
@@ -151,9 +158,25 @@ numpy ground truth computed here:
      reference container's contents (``leon_ref_contents``, lossless and
      lossy) decode in memory to the reads, headers and qualities (lossy:
      the smoothing over a Bloom built on the CPU); the host coder's ms per
-     read each way for both formats.
+     read each way for both formats;
+ 14. the mesh paths (gatb_core_tpu_torch/parallel): (a) a world of one
+     rank over NCCL in this process: count_kmers_distributed of the stress
+     bank (the superbatch exchange; before phase 6 removes the bank), its
+     table equal to phase 4's, then Graph(mesh=) build_postsolid and
+     unitig_graph on the stress table, equal to phases 9c and 11; (b) two
+     ranks spawned on the one card over gloo (every collective staged
+     through the host, so no figure of it is a multi-card figure) after
+     the kernels are built: the bench bank in 2 passes with send windows
+     that overflow (superbatch replays required), equal to phase 2's
+     table; the k=63 bank, equal to phase 3's; error bank a through
+     Graph.create(mesh=), stage by stage beside the same stage on one
+     device of the card, its unitigs equal and its simplify + Monument
+     record equal to JAX_BANK_A; the port's dry run (dryrun_rank). Every
+     rank must return the same result, and each rank must launch the sort
+     kernels in its counts and rank_rows in each sharded graph stage; the
+     ranks' launches join the kernels line.
 
-Phases 2-4 and 6-13 each run with the kernels' launch counters set to 0
+Phases 2-4 and 6-14 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels in the counts;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
@@ -178,6 +201,7 @@ reports them; the last line is the JSON result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -206,6 +230,8 @@ REPLACES = {
 }
 LIMB_KERNELS = ("tile_sort", "merge_partition", "merge_tiles",
                 "bitonic_u64")
+# wall seconds of single-device stages, logged beside phase 14's mesh runs
+SINGLE_S: dict = {}
 SORT_KERNELS = ("tile_sort", "merge_partition", "merge_tiles")
 GRAPH_KERNELS = SORT_KERNELS + ("rank_rows",)
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
@@ -1213,6 +1239,7 @@ def phase_bench(tally, tmp: str, S, count_kmers):
     res, _ = tally.counted(S, "phase 2 bench", lambda: count_kmers(
         path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 22))
     wall = time.time() - t0
+    SINGLE_S["bench count"] = wall
     info = res.info
     log(f"phase 2 bench: count {wall:.3f} s, distinct "
         f"{info['kmers_nb_distinct']}, solid {info['kmers_nb_solid']}, "
@@ -1239,6 +1266,7 @@ def phase_k63(tally, tmp: str, S, count_kmers):
     res, _ = tally.counted(S, "phase 3 k=63", lambda: count_kmers(
         path, kmer_size=63, abundance_min=1))
     wall = time.time() - t0
+    SINGLE_S["k=63 count"] = wall
     rows, cnts = truth_k63(reads)
     log(f"phase 3 k=63: count {wall:.3f} s, distinct "
         f"{res.info['kmers_nb_distinct']} (numpy {len(rows)})")
@@ -1246,7 +1274,7 @@ def phase_k63(tally, tmp: str, S, count_kmers):
     check(np.array_equal(res.solid_kmers, rows)
           and np.array_equal(res.solid_counts, cnts),
           "k=63: table differs from the numpy ground truth")
-    return path
+    return path, res
 
 
 def stress_count(tally, S, count_kmers, path: str, name: str, card: str,
@@ -1261,6 +1289,7 @@ def stress_count(tally, S, count_kmers, path: str, name: str, card: str,
         path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 25,
         nb_passes=1, **kw))
     wall = time.time() - t0
+    SINGLE_S[name] = wall
     log(f"{name}: peak device memory allocated during the count "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; {card}")
     info = res.info
@@ -1730,6 +1759,8 @@ def phase_postsolid_stress(tally, S, R, stress_fold, card: str):
           "9c: neighbor_candidates differ from numpy")
     check_debloom("9c", graph, 31, every, member,
                   lambda cfp: solid_neighbour_u64(nodes, cfp[::16]))
+    # phase 10's MPHF build overwrites postsolid_time; phase 14a reads these
+    SINGLE_S["stress postsolid stages"] = stage_times(info)
     log(f"phase 9c stress graph: {wall:.3f} s wall ({init_s[0]:.3f} s of it "
         f"Graph(): the table's upload and the abundance codes), {n} nodes, "
         f"stages {stage_times(info)}, nb_cfp {info['nb_cfp']} "
@@ -2740,6 +2771,276 @@ def phase_leon_and_merges(tally, S, torch, reads, bench_path: str, tmp: str,
     log(f"phase 13: {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mesh paths (parallel/*): (a) one rank over NCCL at full
+# size, in this process; (b) two ranks on the one card over gloo, spawned
+# ---------------------------------------------------------------------------
+
+MESH_RANK_KERNELS = ("tile_sort", "merge_partition", "merge_tiles",
+                     "rank_rows")
+
+
+def table_sha(res) -> str:
+    """sha256 of a count's solid table, counts and histogram."""
+    h = hashlib.sha256(np.ascontiguousarray(res.solid_kmers).tobytes())
+    h.update(np.ascontiguousarray(res.solid_counts).tobytes())
+    h.update(np.asarray(res.histogram.bins).tobytes())
+    return h.hexdigest()
+
+
+def mesh_world1(tmp: str):
+    """A world of one rank over NCCL on the card, in this process."""
+    from gatb_core_tpu_torch.parallel.mesh import (init_process_group,
+                                                   make_mesh)
+
+    init_process_group(0, 1, os.path.join(tmp, "nccl_rendezvous"), "nccl",
+                       300)
+    return make_mesh(1, "cuda")
+
+
+def phase_mesh_count(tally, S, mesh, stress_path: str, stress_fold,
+                     card: str):
+    """Phase 14a, count: count_kmers_distributed of the stress bank at
+    one rank over NCCL; its table equals the fold phase's. At
+    ``distinct_ratio_hint=0.05`` the local table and the accumulator
+    overflow and grow at full size (replays); the default 0.3 sizes the
+    accumulator at 2^29 rows, which does not fit the card's 80 GB beside
+    its merge (``--mesh-sizing`` runs both sizings)."""
+    import torch
+
+    from gatb_core_tpu_torch.parallel import superbatch
+    from gatb_core_tpu_torch.parallel.exchange import \
+        count_kmers_distributed
+
+    before = superbatch.retries["superbatch"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res, got = tally.counted(
+        S, "phase 14a stress count (mesh, 1 rank, NCCL)",
+        lambda: count_kmers_distributed(
+            stress_path, mesh, kmer_size=31, abundance_min=3,
+            superbatch_rows=1 << 25, distinct_ratio_hint=0.05))
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    replays = superbatch.retries["superbatch"] - before
+    check(res.info["kmers_nb_solid"] == 29_999_950
+          and res.info["kmers_nb_valid"] == 720_000_000,
+          "14a: stress count")
+    check(same_table(res, stress_fold),
+          "14a: the mesh count's table differs from the fold phase's")
+    log(f"phase 14a stress count over a 1-rank NCCL mesh: {wall:.3f} s "
+        f"wall (single device, phase 4: {SINGLE_S['phase 4 stress']:.3f} s)"
+        f", {replays} superbatch replays, peak device memory {peak:.1f} "
+        f"MiB; table equal to phase 4's; {card}")
+    return got
+
+
+def phase_mesh_graph(tally, S, mesh, graph, ug, card: str):
+    """Phase 14a, graph: Graph(mesh=) build_postsolid + unitig_graph on
+    the stress table at one rank over NCCL, against phases 9c and 11."""
+    import torch
+
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+
+    def build():
+        g = Graph(31, graph.solid_limbs, graph.solid_counts, mesh=mesh)
+        g.build_postsolid(mphf_kind="none")
+        torch.cuda.synchronize()
+        return g
+
+    t0 = time.time()
+    gm, got = tally.counted(S, "phase 14a stress graph (mesh)", build,
+                            path=GRAPH_KERNELS)
+    wall = time.time() - t0
+    check(np.array_equal(gm._adjacency, graph._adjacency)
+          and gm.checksum_branching() == graph.checksum_branching()
+          and np.array_equal(gm.branching_nodes(), graph.branching_nodes())
+          and np.array_equal(gm._debloom.cfp, graph._debloom.cfp),
+          "14a: mesh adjacency, branching or cFP differ from phase 9c")
+    t1 = time.time()
+    ugm, got_u = tally.counted(S, "phase 14a stress unitigs (mesh)",
+                               gm.unitig_graph, path=("rank_rows",))
+    u_s = time.time() - t1
+    check(same_unitig_graph(ugm, ug),
+          "14a: mesh unitig graph differs from phase 11's")
+    mesh_t = stage_times(gm.info)
+    one_t = SINGLE_S["stress postsolid stages"]
+    log(f"phase 14a stress graph over a 1-rank NCCL mesh: postsolid "
+        f"{wall:.3f} s wall, stages {mesh_t} (single device, phase 9c: "
+        f"{one_t}); unitig_graph {u_s:.3f} s (phase 11: "
+        f"{graph.info['postsolid_time.unitigs']:.3f} s); adjacency, "
+        f"branching, cFP and unitigs equal to phases 9c and 11; {card}")
+    return {"graph": got, "unitigs": got_u}
+
+
+def _rank_counts(mesh, fn):
+    """Run fn with this rank's launch counters at 0; (result, seconds,
+    launch counts, launch shapes)."""
+    import torch
+
+    from gatb_core_tpu_torch.ops import limb_sort as S
+    from gatb_core_tpu_torch.ops import rank_search as R
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    S.reset_launches()
+    R.reset_launches()
+    sync()
+    t0 = time.time()
+    out = fn()
+    sync()
+    secs = time.time() - t0
+    return out, secs, {k: v for k, v in {**S.launches, **R.launches}.items()
+                       if k in MESH_RANK_KERNELS}, \
+        {k: set(v) for k, v in {**S.launch_shapes, **R.launch_shapes}.items()
+         if k in MESH_RANK_KERNELS}
+
+
+def mesh_rank_count(mesh, path: str, k: int, kw: dict) -> dict:
+    """A rank of phase 14b: count_kmers_distributed of a bank."""
+    from gatb_core_tpu_torch.parallel import superbatch
+    from gatb_core_tpu_torch.parallel.exchange import \
+        count_kmers_distributed
+
+    before = superbatch.retries["superbatch"]
+    res, secs, launches, shapes = _rank_counts(
+        mesh, lambda: count_kmers_distributed(path, mesh, kmer_size=k, **kw))
+    return {"sha": table_sha(res), "info": res.info, "seconds": secs,
+            "replays": superbatch.retries["superbatch"] - before,
+            "launches": {"count": launches}, "shapes": shapes}
+
+
+def mesh_rank_graph(mesh, path: str) -> dict:
+    """A rank of phase 14b: Graph.create(mesh=) on error bank a, each
+    sharded stage apart (create: count, MPHF and the sharded debloom;
+    branching: the sharded adjacency; unitig_graph; simplify), then
+    Monument; each stage also on one device of this rank's card, timed
+    beside it, the unitig graph and the simplify record compared."""
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+    from gatb_core_tpu_torch.parallel import postsolid
+
+    stages, launches, one_s = {}, {}, {}
+    shapes = {name: set() for name in MESH_RANK_KERNELS}
+
+    def stage(name, fn, one_fn):
+        out, stages[name], launches[name], got = _rank_counts(mesh, fn)
+        for key in shapes:
+            shapes[key] |= got[key]
+        one, one_s[name], _, _ = _rank_counts(mesh, one_fn)
+        return out, one
+
+    before = postsolid.retries["postsolid"]
+    kw = dict(bank=path, kmer_size=31, abundance_min=2,
+              build_branching=False)
+    g, one = stage("create", lambda: Graph.create(mesh=mesh, **kw),
+                   lambda: Graph.create(device=mesh.device, **kw))
+    stage("branching", g.branching_nodes, one.branching_nodes)
+    ug, one_ug = stage("unitig_graph", g.unitig_graph, one.unitig_graph)
+    stats, one_stats = stage("simplify", g.simplify, one.simplify)
+    # Monument reuses simplify's sweep and compaction: no rank_rows
+    contigs = g.contigs(traversal="monument")[0]
+    record = simplify_record(g, g._simplifications, stats, contigs)
+    return {"nodes": g.nb_nodes,
+            "equal_one_device": same_unitig_graph(ug, one_ug) and record
+            == simplify_record(one, one._simplifications, one_stats,
+                               one.contigs(traversal="monument")[0]),
+            "record": record, "seconds": (stages, one_s),
+            "launches": launches, "shapes": shapes,
+            "replays": postsolid.retries["postsolid"] - before}
+
+
+def mesh_rank_dryrun(mesh) -> dict:
+    """A rank of phase 14b: the port's dry run body on this mesh."""
+    from gatb_core_tpu_torch.parallel.dryrun import dryrun_rank
+
+    (line, replays), secs, launches, shapes = _rank_counts(
+        mesh, lambda: dryrun_rank(mesh))
+    return {"line": line, "replays": replays, "seconds": secs,
+            "launches": {"dryrun": launches}, "shapes": shapes}
+
+
+def phase_mesh_ranks(tally, tmp: str, bench_path: str, bench_fold,
+                     k63_path: str, k63_res, card: str):
+    """Phase 14b: two ranks on the one card over gloo (staged through the
+    host), spawned after the kernels were built: the bench bank in 2
+    passes with send windows that overflow, the k=63 bank, error bank a
+    through Graph(mesh=), and the dry run. Every rank's result must be
+    the same and equal to the single-device phases; every rank must
+    launch rank_rows in each sharded stage; the counts must replay
+    superbatches. Returns the launch counts summed over the ranks and the
+    union of their launch shapes."""
+    from gatb_core_tpu_torch.parallel.mesh import RankPool
+
+    path_a = os.path.join(tmp, "errors_a_mesh.fa")
+    with open(path_a, "wb") as f:
+        write_reads(f, error_reads(**ERROR_BANKS["a"]["reads"]), 0)
+    total = {name: 0 for name in MESH_RANK_KERNELS}
+    shapes = {name: set() for name in MESH_RANK_KERNELS}
+    t0 = time.time()
+    with RankPool(2, device="cuda", backend="gloo", timeout=300) as pool:
+        spawn_s = time.time() - t0
+
+        def run(name, fn, *args, need=("tile_sort",)):
+            """Run fn on both ranks; each rank must have launched the
+            kernels ``need`` names in each of its stages."""
+            outs = pool.run(fn, *args)
+            for rank, out in enumerate(outs):
+                for key in shapes:
+                    shapes[key] |= out["shapes"][key]
+                for stage, got in out["launches"].items():
+                    log(f"phase 14b {name}, {stage}: rank {rank} launches "
+                        f"{got}")
+                    check(all(got[key] > 0 for key in need),
+                          f"14b {name}, {stage}: rank {rank} launched no "
+                          f"{'/'.join(need)}")
+                    for key in total:
+                        total[key] += got[key]
+            plain = [{k: v for k, v in o.items()
+                      if k not in ("seconds", "launches", "shapes")}
+                     for o in outs]
+            check(all(p == plain[0] for p in plain),
+                  f"14b {name}: the ranks' results differ")
+            return outs[0], [o["seconds"] for o in outs]
+
+        bench, bench_s = run("bench count", mesh_rank_count, bench_path, 31,
+                             dict(abundance_min=3, nb_passes=2,
+                                  capacity_factor=0.1))
+        check(bench["sha"] == table_sha(bench_fold)
+              and bench["info"]["kmers_nb_distinct"] == 999_959,
+              "14b: the bench count differs from phase 2's")
+        check(bench["replays"] > 0, "14b: no superbatch was replayed")
+        k63, k63_s = run("k=63 count", mesh_rank_count, k63_path, 63,
+                         dict(abundance_min=1))
+        check(k63["sha"] == table_sha(k63_res),
+              "14b: the k=63 count differs from phase 3's")
+        # every stage of the graph is sharded: each sweeps with rank_rows
+        ga, ga_s = run("error bank a", mesh_rank_graph, path_a,
+                       need=("rank_rows",))
+        check(ga["record"] == JAX_BANK_A and ga["equal_one_device"],
+              f"14b: error bank a differs from phase 12a: {ga['record']}")
+        dry, dry_s = run("dryrun", mesh_rank_dryrun,
+                         need=("tile_sort", "rank_rows"))
+        check(dry["replays"] > 0, "14b: the dry run replayed nothing")
+    os.remove(path_a)
+    log(f"phase 14b: 2 ranks on one card over gloo (staged through the "
+        f"host; not a multi-card figure): spawn {spawn_s:.1f} s; bench "
+        f"count, 2 passes, {bench['replays']} superbatch replays: "
+        f"{max(bench_s):.3f} s (single device, 1 pass, phase 2: "
+        f"{SINGLE_S['bench count']:.3f} s); k=63 count {max(k63_s):.3f} s "
+        f"(phase 3: {SINGLE_S['k=63 count']:.3f} s); error bank a "
+        f"({ga['nodes']} nodes), each stage's s on rank 0 / rank 1 "
+        f"(beside it on one device of the same card): "
+        + ", ".join(f"{key} " + "/".join(f"{m[key]:.3f}" for m, _ in ga_s)
+                    + " (" + "/".join(f"{o[key]:.3f}" for _, o in ga_s)
+                    + ")" for key in ga_s[0][0])
+        + f"; unitigs and simplify record equal to one device and to "
+        f"JAX_BANK_A; dry run {max(dry_s):.3f} s: "
+        f"{dry['line']}; {card}")
+    return total, shapes
+
+
 def device_events(torch, prof):
     """(name, self device microseconds, calls) of every device-side event
     (kernels and copies) of a profile, longest first."""
@@ -2810,6 +3111,57 @@ def profile_main(torch, count_kmers, n_reads: int, out_dir: str) -> int:
     return 0
 
 
+def mesh_sizing_main(torch, n_reads: int) -> int:
+    """The ``--mesh-sizing`` mode: count_kmers_distributed of the stress
+    bank at one rank over NCCL with phase 14a's ``distinct_ratio_hint``
+    (0.05) and with the default (0.3): wall time, peak device memory, the
+    final capacities and the replays of each; the tables must agree."""
+    from gatb_core_tpu_torch.parallel import superbatch
+    from gatb_core_tpu_torch.parallel.exchange import \
+        count_kmers_distributed
+
+    card = card_line()
+    log(f"torch {torch.__version__}; {card}")
+    build_all()
+    with tempfile.TemporaryDirectory(prefix="gatb_sizing_") as tmp:
+        mesh = mesh_world1(tmp)
+        try:
+            bank = os.path.join(tmp, "stress.fa")
+            write_stress_bank(bank, n_reads=n_reads)
+            shas = set()
+            for hint in (0.05, 0.3):
+                before = superbatch.retries["superbatch"]
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                try:
+                    res = count_kmers_distributed(
+                        bank, mesh, kmer_size=31, abundance_min=3,
+                        superbatch_rows=1 << 25, distinct_ratio_hint=hint)
+                except torch.cuda.OutOfMemoryError as e:
+                    log(f"distinct_ratio_hint={hint}: out of device memory "
+                        f"after {time.time() - t0:.3f} s, capacities "
+                        f"{superbatch.capacities}, peak "
+                        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} "
+                        f"MiB ({str(e).splitlines()[0]}); {card}")
+                    continue
+                wall = time.time() - t0
+                shas.add(table_sha(res))
+                log(f"distinct_ratio_hint={hint}: count {wall:.3f} s wall, "
+                    f"solid {res.info['kmers_nb_solid']}, distinct "
+                    f"{res.info['kmers_nb_distinct']}, replays "
+                    f"{superbatch.retries['superbatch'] - before}, final "
+                    f"capacities {superbatch.capacities}, peak device "
+                    f"memory allocated "
+                    f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+                    f"{card}")
+                del res
+            check(len(shas) == 1, "mesh sizing: the tables differ")
+        finally:
+            torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -2818,8 +3170,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile the stress count instead of the phases")
+    ap.add_argument("--mesh-sizing", action="store_true",
+                    help="count the stress bank over a 1-rank mesh at two "
+                    "accumulator sizings instead of the phases")
     ap.add_argument("--reads", type=int, default=6_000_000,
-                    help="reads of the stress bank under --profile")
+                    help="reads of the stress bank under --profile and "
+                    "--mesh-sizing")
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"),
                     help="directory of the profile lists")
     args = ap.parse_args()
@@ -2837,6 +3193,8 @@ def main() -> int:
         return 2
     if args.profile:
         return profile_main(torch, count_kmers, args.reads, args.out)
+    if args.mesh_sizing:
+        return mesh_sizing_main(torch, args.reads)
 
     smi = card_line()
     card = f"{torch.cuda.get_device_name(0)}, power limit " \
@@ -2851,14 +3209,21 @@ def main() -> int:
                                                                card)
     phase_fetch(torch, card)
     tally = Tally()
-    with tempfile.TemporaryDirectory(prefix="gatb_smoke_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="gatb_smoke_") as tmp, \
+            contextlib.ExitStack() as stack:
         reads, bench_path, truth, bench_fold = phase_bench(
             tally, tmp, S, count_kmers)
-        k63_path = phase_k63(tally, tmp, S, count_kmers)
+        k63_path, k63_res = phase_k63(tally, tmp, S, count_kmers)
         stress_path, stress_fold, fold_got = phase_stress(
             tally, tmp, S, count_kmers, card)
         lsm_got = phase_lsm(tally, S, count_kmers, bench_path, bench_fold,
                             stress_path, stress_fold, card)
+        t0 = time.time()
+        mesh = mesh_world1(tmp)
+        stack.callback(torch.distributed.destroy_process_group)
+        mesh_got = {"count": phase_mesh_count(tally, S, mesh, stress_path,
+                                              stress_fold, card)}
+        mesh_s = time.time() - t0
         os.remove(stress_path)
         phase_multibank(tally, tmp, S, reads)
         phase_dbgh5(tally, tmp, S, bench_path, truth)
@@ -2882,15 +3247,28 @@ def main() -> int:
         simplify_got = {
             "stress": phase_simplify_stress(tally, S, graphs["stress"],
                                             ugs["stress"], card)}
+        t0 = time.time()
+        mesh_got.update(phase_mesh_graph(tally, S, mesh, graphs["stress"],
+                                         ugs["stress"], card))
+        mesh_s += time.time() - t0
         del graphs, ugs
         for name in ERROR_BANKS:
             simplify_got[name] = phase_simplify(tally, S, name, tmp, card)
         phase_leon_and_merges(tally, S, torch, reads, bench_path, tmp, card)
+        torch.cuda.empty_cache()      # room for the ranks' own caches
+        t0 = time.time()
+        mesh_got["ranks"], rank_shapes = phase_mesh_ranks(
+            tally, tmp, bench_path, bench_fold, k63_path, k63_res, card)
+        for key, n in mesh_got["ranks"].items():
+            tally.launches[key] += n
+            tally.shapes[key] |= rank_shapes[key]
+        log(f"phase 14: {mesh_s + time.time() - t0:.1f} s")
     log(f"launches in the stress count: fold {fold_got}, LSM {lsm_got}")
     log(f"launches in the postsolid builds: {graph_got}")
     log(f"launches in the MPHF builds and queries: {mphf_got}")
     log(f"launches in the unitig builds: {unitig_got}")
     log(f"launches in phase 12: {simplify_got}")
+    log(f"launches in phase 14: {mesh_got}")
     err_s = phase_shapes(torch, S, R, tally.shapes)
     err["rank_rows"] = max(err["rank_rows"], err_g)
     for name in err:

@@ -26,8 +26,10 @@ completed stages.
 
 The solid table, the MPHF, the Bloom words and the cFP sets live on
 ``device`` (default ``"cuda"``; nothing falls back to the CPU). Queries
-take and return numpy arrays, as in the JAX package. There is no ``mesh``
-argument yet.
+take and return numpy arrays, as in the JAX package. With a ``mesh``
+(parallel/mesh.py) the postsolid stages (adjacency, debloom, unitig
+construction, the simplification sweeps) run range-sharded over its ranks
+(parallel/postsolid.py) on the mesh's device, with the same results.
 """
 
 from __future__ import annotations
@@ -77,9 +79,13 @@ class Graph:
 
     def __init__(self, kmer_size: int, solid_limbs: np.ndarray,
                  solid_counts: np.ndarray, storage: Storage | None = None,
-                 info: dict | None = None, device="cuda"):
+                 info: dict | None = None, mesh=None, device="cuda"):
         self.kmer_size = kmer_size
-        self.device = torch.device(device)
+        #: optional parallel.mesh.Mesh: the postsolid stages run
+        #: range-sharded over its ranks; None = single-device sweeps
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else torch.device(device)
         self._k = kmer_size
         self._w = nb_limbs(kmer_size)
         self.solid_limbs = np.asarray(solid_limbs, np.uint32)
@@ -116,7 +122,7 @@ class Graph:
                bloom_kind: str = "neighbor", debloom_kind: str = "cascading",
                mphf_kind: str = "boophf",
                repartition: bool = True,
-               superbatch_rows: int | None = None,
+               superbatch_rows: int | None = None, mesh=None,
                table_budget_bytes: int | None = None,
                device: str = "cuda") -> "Graph":
         """Graph build from a bank (Graph::create equivalent):
@@ -124,7 +130,11 @@ class Graph:
         each stage persisted + state-bit-stamped, then the postsolid stages
         (build_visitor_postsolid, Graph.cpp:433-605). Kind defaults mirror
         the reference enums (misc/api/Enums.hpp:73-271); 'none' skips a
-        stage."""
+        stage. With ``mesh`` the count runs on the mesh's device of every
+        rank and the postsolid stages run sharded, as in the JAX
+        package."""
+        if mesh is not None:
+            device = mesh.device
         cfg = CountConfig(kmer_size=kmer_size, abundance_min=abundance_min,
                           abundance_max=abundance_max,
                           minimizer_size=minimizer_size, histo_max=histo_max,
@@ -180,7 +190,7 @@ class Graph:
                 rep_box[0].save(storage)
 
         graph = cls(kmer_size, result.solid_kmers, result.solid_counts,
-                    storage, result.info, device=device)
+                    storage, result.info, mesh=mesh, device=device)
         graph.build_postsolid(bloom_kind=bloom_kind,
                               debloom_kind=debloom_kind,
                               mphf_kind=mphf_kind,
@@ -216,9 +226,9 @@ class Graph:
             with ti.section("debloom"):
                 deb = build_debloom(self._padded_table(), self._k,
                                     cascading=debloom_kind == "cascading",
-                                    bloom_kind=bloom_kind,
+                                    bloom_kind=bloom_kind, mesh=self.mesh,
                                     device=self.device,
-                                    index=self._set.index)
+                                    index=self._sweep_index())
                 self._debloom = deb
                 self._container = BloomCfpContainer(deb)
                 self.info.update(deb.info)
@@ -408,6 +418,14 @@ class Graph:
         walks the one ``RankIndex`` of ``self._set``."""
         return self._set.limbs
 
+    def _sweep_index(self):
+        """The held ``RankIndex`` a stage's sweep walks: the graph's own,
+        unless a mesh of several ranks shards the table (each shard then
+        indexes itself)."""
+        if self.mesh is not None and self.mesh.size > 1:
+            return None
+        return self._set.index
+
     def adjacency_masks(self, nodes) -> np.ndarray:
         """8-bit neighbor mask per node: bits 0-3 out by nt, 4-7 in by nt."""
         batch = self._as_batch(nodes)
@@ -436,13 +454,24 @@ class Graph:
     def precompute_adjacency(self, chunk: int | None = None) -> np.ndarray:
         """Cache the 8-bit mask for every node (precomputeAdjacency,
         Graph.cpp:3508-3610): a sweep over the device table in chunks of
-        ``sweep_chunk`` nodes (at most ``chunk`` where given)."""
+        ``sweep_chunk`` nodes (at most ``chunk`` where given), or over the
+        graph's mesh."""
         if self._adjacency is None:
             import time as _t
 
             from ..ops.sortops import sweep_chunk
 
             t0 = _t.time()
+            if self.mesh is not None and self.nb_nodes:
+                from ..parallel.postsolid import distributed_adjacency
+
+                self._adjacency = distributed_adjacency(
+                    self.mesh, self._padded_table(), self._k,
+                    index=self._sweep_index())
+                self.info["postsolid_time.adjacency"] = round(
+                    _t.time() - t0, 3)
+                self._store_adjacency()
+                return self._adjacency
             table = self._padded_table()
             step = sweep_chunk(self.nb_nodes)
             if chunk:   # caller-imposed device-memory bound
@@ -455,11 +484,14 @@ class Graph:
                     self._set.index)
             self._adjacency = masks.cpu().numpy()
             self.info["postsolid_time.adjacency"] = round(_t.time() - t0, 3)
-            if self.storage is not None:
-                g = self.storage.group("adjacency")
-                g.set_dataset("masks", self._adjacency)
-                self.storage.set_state_bit(STATE_ADJACENCY_DONE)
+            self._store_adjacency()
         return self._adjacency
+
+    def _store_adjacency(self) -> None:
+        if self.storage is not None:
+            g = self.storage.group("adjacency")
+            g.set_dataset("masks", self._adjacency)
+            self.storage.set_state_bit(STATE_ADJACENCY_DONE)
 
     # ------------------------------------------------------------------
     # branching (BranchingAlgorithm, debruijn/impl/BranchingAlgorithm.cpp)
@@ -582,8 +614,9 @@ class Graph:
         if not (self.node_state & 1).any():
             adj = self.precompute_adjacency()
             ug = build_unitig_graph(self._padded_table(), self.solid_counts,
-                                    adj, self._k, device=self.device,
-                                    index=self._set.index)
+                                    adj, self._k, mesh=self.mesh,
+                                    device=self.device,
+                                    index=self._sweep_index())
         else:
             from .simplifications import Simplifications
 

@@ -191,18 +191,20 @@ class UnitigGraph:
 
 
 def build_unitig_graph(solid_limbs, solid_counts: np.ndarray,
-                       adjacency: np.ndarray, k: int,
+                       adjacency: np.ndarray, k: int, mesh=None,
                        device="cuda", index=None) -> UnitigGraph:
     """Unitigs + links from the solid k-mer set, on ``device``
     (``solid_limbs``: numpy rows or limb rows already there). The sweep
     and the links walk one ``RankIndex`` of the table: ``index`` where the
-    caller holds it (the rows on the device then), else one built here."""
+    caller holds it (the rows on the device then), else one built here.
+    ``mesh`` shards the unitig construction over its ranks; the links are
+    built on each rank, as in the JAX package."""
     from ..ops.rank_search import held_index
 
     table = rows_to_device(solid_limbs, device)
     index = held_index(table, table.shape[0], index)
-    us = build_unitigs(table, solid_counts, adjacency, k, device=device,
-                       index=index)
+    us = build_unitigs(table, solid_counts, adjacency, k, mesh=mesh,
+                       device=device, index=index)
     return link_unitigs(table, us, k, device=device, index=index)
 
 

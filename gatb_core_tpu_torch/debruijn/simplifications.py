@@ -25,8 +25,9 @@ walker flags a candidate) are host Python, as in the JAX package.
 Float64 sums are taken in numpy's order: ``np.bincount`` adds a bin's
 weights in array order from 0.0, and CUDA's scatter-adds add in no fixed
 order, so each bin's contributions (at most 8) sit in a padded matrix
-summed column by column (``_ordered_sum``). There is no ``mesh`` argument
-(ROADMAP A9).
+summed column by column (``_ordered_sum``). On a graph with a ``mesh`` the
+full sweep and each recompaction's list ranking run over its ranks
+(parallel/postsolid.py), with the same decisions.
 """
 
 from __future__ import annotations
@@ -247,8 +248,9 @@ class Simplifications:
         flips = self._full_flips[live_idx]
         weights = 1 << torch.arange(8, dtype=I32, device=dev)
         adj = ((ranks >= 0).to(I32) * weights).sum(1).to(torch.uint8)
-        us = build_unitigs(limbs, counts, adj, k, device=dev,
-                           precomputed=(ranks, flips), lazy_sequences=True)
+        us = build_unitigs(limbs, counts, adj, k, mesh=self.graph.mesh,
+                           device=dev, precomputed=(ranks, flips),
+                           lazy_sequences=True)
         ug = link_unitigs(limbs, us, k, device=dev,
                           precomputed=(ranks, flips))
         return us, ug
@@ -256,7 +258,14 @@ class Simplifications:
     def _full_sweep(self) -> None:
         """One candidate-ranks/flips sweep over the FULL solid table
         (deleted rows included: liveness is applied at remap time), kept on
-        the device."""
+        the device; over the graph's mesh where it has one."""
+        if self.graph.mesh is not None:
+            from ..parallel.postsolid import distributed_cand_ranks
+
+            self._full_ranks, self._full_flips = distributed_cand_ranks(
+                self.graph.mesh, self.graph._padded_table(), self.k,
+                index=self.graph._sweep_index())
+            return
         self._full_ranks, self._full_flips = cand_sweep(
             self.graph._padded_table(), self.graph.nb_nodes, self.k,
             index=self.graph._set.index)

@@ -28,8 +28,9 @@ round count ``ceil(log2(m)) + 1`` over m entries equals the padded one.
 Outputs unitig sequences, per-unitig k-mer counts / mean abundance (the
 ``km:f:`` FASTA annotation, bglue_algo.cpp output convention) and
 node->unitig position maps used for links and the unitig graph, as numpy
-arrays with the JAX package's dtypes. There is no ``mesh`` argument yet
-(ROADMAP A9).
+arrays with the JAX package's dtypes. With a ``mesh`` the candidate sweep,
+the cycle cut and the list ranking run over its ranks
+(parallel/postsolid.py), with the same result.
 """
 
 from __future__ import annotations
@@ -196,22 +197,31 @@ def _chain_parents(ranks, flips, adj, n) -> torch.Tensor:
     return torch.where(ids >= 2 * int(n), ids, pred)
 
 
-def _succ_cut_rank(ranks, flips, adj, n, mark=None):
+def _succ_cut_rank(ranks, flips, adj, n, mark=None, mesh=None):
     """Successor rule + predecessor chains + cycle cutting + full
     pointer-doubling list ranking, all on the device of the inputs.
 
     ranks/flips: (C, 8) int32/int8 candidate ranks and strand flips;
     adj: (C,) uint8 adjacency masks; n: live row count (rows >= n are
     padding, as in the JAX package's padded tables); ``mark``: called with
-    each step's name as it is enqueued (``_StepClock``).
+    each step's name as it is enqueued (``_StepClock``); ``mesh``: the
+    cycle cut and the ranking run over its ranks (parallel/postsolid.py).
     Returns (roots (2C,) int32, rank (2C,) int32, cut (2C,) bool);
     rows >= 2n are self-loops."""
     mark = mark or (lambda name: None)
     pred = _chain_parents(ranks, flips, adj, n)
     mark("successor_rule")
-    parent, cut = _cut_cycles(pred)
-    mark("cycle_cut")
-    roots, rank = _pointer_double(parent)
+    if mesh is None:
+        parent, cut = _cut_cycles(pred)
+        mark("cycle_cut")
+        roots, rank = _pointer_double(parent)
+    else:
+        from ..parallel.postsolid import (distributed_cut_cycles,
+                                          distributed_pointer_double)
+
+        parent, cut = distributed_cut_cycles(mesh, pred)
+        mark("cycle_cut")
+        roots, rank = distributed_pointer_double(mesh, parent)
     mark("list_ranking")
     return roots, rank, cut
 
@@ -278,7 +288,7 @@ def cand_sweep(table: torch.Tensor, n: int, k: int,
 
 
 def build_unitigs(solid_limbs, solid_counts, adjacency, k: int,
-                  chunk: int | None = None, device="cuda",
+                  chunk: int | None = None, mesh=None, device="cuda",
                   timings: dict | None = None, precomputed=None,
                   lazy_sequences: bool = False, index=None) -> UnitigSet:
     """Compact the solid-k-mer graph into unitigs (bcalm2+bglue+links
@@ -293,7 +303,10 @@ def build_unitigs(solid_limbs, solid_counts, adjacency, k: int,
     (``candidate_ranks``, ``successor_rule``, ``cycle_cut``,
     ``list_ranking``, ``node_maps``, ``emit``; ``_StepClock``).
     ``index``: the table's ``RankIndex`` for the sweep, where the caller
-    holds one."""
+    holds one. With ``mesh``, the candidate sweep and the list ranking run
+    over its ranks (parallel/postsolid.py: ``distributed_cand_ranks``
+    unless ``precomputed`` is given, ``distributed_cut_cycles``,
+    ``distributed_pointer_double``), with the same result."""
     table = rows_to_device(solid_limbs, device)
     n = table.shape[0]
     if n == 0:
@@ -305,12 +318,17 @@ def build_unitigs(solid_limbs, solid_counts, adjacency, k: int,
     clock = _StepClock(dev, timings)
 
     # --- oriented chains ------------------------------------------------
-    if precomputed is None:
-        ranks, flips = cand_sweep(table, n, k, chunk, index)
-    else:
+    if precomputed is not None:
         ranks, flips = precomputed
+    elif mesh is not None:
+        from ..parallel.postsolid import distributed_cand_ranks
+
+        ranks, flips = distributed_cand_ranks(mesh, table, k, index=index)
+    else:
+        ranks, flips = cand_sweep(table, n, k, chunk, index)
     clock("candidate_ranks")
-    roots, rank, cycle_cut = _succ_cut_rank(ranks, flips, adj, n, clock)
+    roots, rank, cycle_cut = _succ_cut_rank(ranks, flips, adj, n, clock,
+                                            mesh)
     del ranks, flips
     ids = torch.arange(2 * n, dtype=I64, device=dev)
     twin = ids ^ 1
@@ -388,17 +406,22 @@ def _cand_ranks_flips(nodes, table, n_table, k: int, index=None):
     pos, found = rank_join_traced(table, cands.reshape(c * 8, w), n_table,
                                   index=index)
     ranks = torch.where(found, pos, torch.full_like(pos, -1)).reshape(c, 8)
-    # strand of the neighbor: the candidate equals its canonical form iff
-    # the extension's forward form is canonical; flip=1 otherwise.
-    # Out-candidates (slots 0-3): fwd ext = (f<<2)|nt; in-candidates
-    # (slots 4-7): fwd ext = (f>>2)|nt<<2(k-1).
+    return ranks.to(I32), _cand_flips(nodes, cands, k)
+
+
+def _cand_flips(nodes, cands, k: int) -> torch.Tensor:
+    """(C, 8) int8 strand flips of the neighbor candidates ``cands``
+    (C, 8, W) of ``nodes``: the candidate equals its canonical form iff
+    the extension's forward form is canonical; flip=1 otherwise.
+    Out-candidates (slots 0-3): fwd ext = (f<<2)|nt; in-candidates
+    (slots 4-7): fwd ext = (f>>2)|nt<<2(k-1)."""
     f = as_u32_i64(nodes)
-    flips = torch.empty((c, 8), dtype=torch.int8, device=f.device)
+    flips = torch.empty((f.shape[0], 8), dtype=torch.int8, device=f.device)
     for nt in range(4):
         flips[:, nt] = (shl2_or(f, nt, k) != cands[:, nt]).any(dim=-1)
         flips[:, 4 + nt] = (shr2_or_top(f, nt, k)
                             != cands[:, 4 + nt]).any(dim=-1)
-    return ranks.to(I32), flips
+    return flips
 
 
 class PackedSequences:

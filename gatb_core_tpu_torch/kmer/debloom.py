@@ -20,8 +20,8 @@ reduce of the hits (``ops/sortops.count_planes``, the limb-sort kernels).
 The chunks' tables are joined by one more sort + reduce on the device. The
 cFP set is a set: it does not depend on the chunking.
 
-There is no ``mesh`` argument yet (the range-sharded sweep of the JAX
-package comes with the port of its ``parallel`` modules).
+With a ``mesh`` the sweep runs range-sharded over its ranks
+(parallel/postsolid.distributed_debloom_probe); the cFP set is the same.
 """
 
 from __future__ import annotations
@@ -139,7 +139,7 @@ def build_debloom(solid_limbs, k: int,
                   bloom_nbits: float | None = None,
                   cascading: bool = False, user_seed: int = 0,
                   bloom_kind: str = "neighbor",
-                  chunk: int | None = None,
+                  chunk: int | None = None, mesh=None,
                   device="cuda", index=None) -> DebloomResult:
     """Build Bloom + cFP over the solid set (BloomAlgorithm +
     DebloomAlgorithm equivalents) on ``device``. ``solid_limbs`` is the
@@ -149,13 +149,13 @@ def build_debloom(solid_limbs, k: int,
     kind='neighbor'); ``cascading`` selects the cFP encoding (reference
     default kind). ``chunk`` bounds the nodes per sweep step. ``index``:
     the table's ``RankIndex`` where the caller holds one; else the sweep
-    builds one for all its steps."""
+    builds one for all its steps. With ``mesh`` the 8-probe sweep runs
+    range-sharded over its ranks (on the mesh's device)."""
     from ..ops.rank_search import held_index
     from ..ops.sortops import _next_pow2, sweep_chunk
 
     table = rows_to_device(solid_limbs, device)
     n = table.shape[0]
-    index = held_index(table, n, index)
     w = table.shape[1] if n else 1
     if bloom_nbits is None:
         # NBITS_PER_KMER formula (DebloomAlgorithm.cpp:628-650)
@@ -164,6 +164,13 @@ def build_debloom(solid_limbs, k: int,
                         nb_items=max(n, 1), user_seed=user_seed,
                         kind=bloom_kind, kmer_size=k)
 
+    if mesh is not None and n:
+        from ..parallel.postsolid import distributed_debloom_probe
+
+        return _debloom_result(
+            table, k, bloom, bloom_nbits, cascading, user_seed, device,
+            distributed_debloom_probe(mesh, table, k, bloom, index=index))
+    index = held_index(table, n, index)
     csize = sweep_chunk(max(n, 1))
     if chunk:                   # caller-imposed bound
         csize = min(csize, chunk)
@@ -197,7 +204,13 @@ def build_debloom(solid_limbs, k: int,
         cfp = rows_to_numpy(parts[0])
     else:
         cfp = np.zeros((0, w), np.uint32)
+    return _debloom_result(table, k, bloom, bloom_nbits, cascading,
+                           user_seed, device, cfp)
 
+
+def _debloom_result(table, k: int, bloom, bloom_nbits, cascading: bool,
+                    user_seed: int, device, cfp: np.ndarray):
+    """The DebloomResult of a cFP set: its kind, the cascade and info."""
     # reference falls back to ORIGINAL when there are no false positives
     # (DebloomAlgorithm.cpp:476-478)
     kind = "cascading" if (cascading and len(cfp)) else "original"

@@ -365,7 +365,9 @@ def merge_stacked_tree_capped(kmers: torch.Tensor, counts: torch.Tensor,
             length = min(2 * length, cap2)
             planes, _, ov = _dedup_compact_planes(
                 merged.view(w + 1, pairs, -1), length)
-            planes = planes.reshape(w + 1, pairs * length)
+            # one pair's slice is a strided view; the next merge level
+            # takes contiguous planes
+            planes = planes.reshape(w + 1, pairs * length).contiguous()
             overflow = overflow | ov.any()
     planes = planes.reshape(w + 1, -1)
     cnt = torch.bitwise_not(planes[w])

@@ -484,3 +484,116 @@ def test_linear_counter_on_card_matches_cpu(cuda, tmp_path):
     src = _leon_fastq(tmp_path / "r.fq")
     assert estimate_distinct_kmers(src, 31, device="cuda") == \
         estimate_distinct_kmers(src, 31, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths at world size 1 on the card (NCCL, this process)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A world of one rank over NCCL on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from gatb_core_tpu_torch.parallel.mesh import (init_process_group,
+                                                   make_mesh)
+
+    init_process_group(0, 1, str(tmp_path_factory.mktemp("nccl")
+                                 / "rendezvous"), "nccl", 120)
+    try:
+        yield make_mesh(1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _error_seqs(seed=5, n_reads=600):
+    """150 bp reads of a 3 kbp genome with 1% substitutions."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=3000, dtype=np.uint8)
+    reads = genome[rng.integers(0, 2850, size=n_reads)[:, None]
+                   + np.arange(150)]
+    hit = rng.random(reads.shape) < 0.01
+    reads = np.where(hit, (reads + rng.integers(1, 4, size=reads.shape,
+                                                dtype=np.uint8)) & 3, reads)
+    nts = np.frombuffer(b"ACTG", np.uint8)
+    return [nts[r].tobytes().decode() for r in reads]
+
+
+def test_mesh_count_on_card_matches_cpu(mesh1):
+    """count_kmers_distributed (the superbatch exchange) at one rank over
+    NCCL, with a forced replay, against count_kmers on the CPU."""
+    from gatb_core_tpu_torch.parallel import superbatch
+    from gatb_core_tpu_torch.parallel.exchange import \
+        count_kmers_distributed
+
+    seqs = _error_seqs()
+    before = superbatch.retries["superbatch"]
+    S.reset_launches()
+    got = count_kmers_distributed(BankStrings(*seqs), mesh1, kmer_size=31,
+                                  abundance_min=2, nb_passes=2,
+                                  distinct_ratio_hint=0.001,
+                                  superbatch_rows=1 << 15)
+    assert superbatch.retries["superbatch"] > before
+    assert S.launches["tile_sort"] > 0 and S.launches["merge_tiles"] > 0
+    ref = count_kmers(BankStrings(*seqs), kmer_size=31, abundance_min=2,
+                      device="cpu")
+    assert np.array_equal(got.solid_kmers, ref.solid_kmers)
+    assert np.array_equal(got.solid_counts, ref.solid_counts)
+    assert got.info["kmers_nb_valid"] == ref.info["kmers_nb_valid"]
+
+
+def test_mesh_postsolid_stages_on_card_match_cpu(mesh1):
+    """distributed_adjacency, the debloom probe, the candidate ranks and
+    the list ranking at one rank on the card, against the single-device
+    stages on the CPU."""
+    from gatb_core_tpu_torch import Graph
+    from gatb_core_tpu_torch.debruijn import unitigs as U
+    from gatb_core_tpu_torch.parallel import postsolid as P
+
+    res = count_kmers(BankStrings(*_error_seqs()), kmer_size=31,
+                      abundance_min=2, device="cpu")
+    cpu = Graph(31, res.solid_kmers, res.solid_counts, device="cpu")
+    cpu.build_postsolid(mphf_kind="none")
+    R.reset_launches()
+    adj = P.distributed_adjacency(mesh1, res.solid_kmers, 31)
+    assert R.launches["rank_rows"] > 0
+    assert np.array_equal(adj, cpu.precompute_adjacency())
+    bloom = cpu._debloom.bloom._replace(words=cpu._debloom.bloom.words
+                                        .cuda())
+    assert np.array_equal(P.distributed_debloom_probe(
+        mesh1, res.solid_kmers, 31, bloom), cpu._debloom.cfp)
+    ranks, flips = P.distributed_cand_ranks(mesh1, res.solid_kmers, 31)
+    want_r, want_f = U.cand_sweep(cpu._padded_table(), cpu.nb_nodes, 31)
+    assert torch.equal(ranks.cpu(), want_r) and torch.equal(flips.cpu(),
+                                                            want_f)
+    pred = U._chain_parents(want_r, want_f, torch.from_numpy(
+        cpu.precompute_adjacency()), cpu.nb_nodes)
+    par, cut = P.distributed_cut_cycles(mesh1, pred)
+    roots, rank = P.distributed_pointer_double(mesh1, par)
+    want = U._cut_cycles(pred)
+    assert torch.equal(par.cpu(), want[0]) and torch.equal(cut.cpu(),
+                                                           want[1])
+    for a, b in zip((roots, rank), U._pointer_double(want[0])):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_mesh_graph_on_card_matches_cpu(mesh1):
+    """Graph.create(mesh=) at one rank on the card: unitigs, simplify(),
+    node_state and Monument contigs equal the CPU graph's."""
+    from gatb_core_tpu_torch import Graph
+
+    seqs = _error_seqs(seed=7)
+    kw = dict(kmer_size=21, abundance_min=2, batch_reads=64,
+              superbatch_rows=1 << 16, mphf_kind="none")
+    a = Graph.create(BankStrings(*seqs), mesh=mesh1, **kw)
+    b = Graph.create(BankStrings(*seqs), device="cpu", **kw)
+    assert a.device.type == "cuda" and a.mesh is mesh1
+    ua, ub = a.unitig_graph(), b.unitig_graph()
+    assert list(ua.sequences) == list(ub.sequences)
+    sa, sb = a.simplify(), b.simplify()
+    assert vars(sa) == vars(sb) and sa.tips_removed > 0
+    assert np.array_equal(a.node_state, b.node_state)
+    assert a.contigs(traversal="monument") == b.contigs(traversal="monument")

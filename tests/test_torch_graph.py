@@ -307,12 +307,39 @@ def test_graph_defaults_to_the_card():
     "BankSplitter", "BankFastaWriter", "Sequence", "CountConfig", "CountResult", "SortingCount", "count_kmers",
     "count_kmers_multibank", "solidity_check", "Histogram", "Graph",
     "build_bloom", "BloomFilter", "Storage", "assemble_contigs",
-    "__version__"])
+    "__version__", "parallel.mesh.make_mesh", "parallel.mesh.make_mesh2d",
+    "parallel.mesh.data_sharding", "parallel.mesh.replicated",
+    "parallel.mesh.DATA_AXIS", "parallel.mesh.HOST_AXIS",
+    "parallel.mesh.CHIP_AXIS", "parallel.exchange.partition_of_minimizer",
+    "parallel.exchange.ShardCount", "parallel.exchange.make_count_step",
+    "parallel.exchange.count_kmers_distributed",
+    "parallel.exchange.count_kmers_distributed_hostmerge",
+    "parallel.exchange.global_table",
+    "parallel.superbatch.sample_range_bounds",
+    "parallel.superbatch.make_superbatch_step",
+    "parallel.superbatch.make_host_merge",
+    "parallel.superbatch.count_kmers_distributed_superbatch",
+    "parallel.postsolid.shard_table", "parallel.postsolid.exchange_rank",
+    "parallel.postsolid.distributed_adjacency",
+    "parallel.postsolid.distributed_debloom_probe",
+    "parallel.postsolid.distributed_cand_ranks",
+    "parallel.postsolid.distributed_pointer_double",
+    "parallel.postsolid.distributed_cut_cycles"])
 def test_package_surface(name):
-    """Every name the port has a module for comes from both packages."""
-    assert hasattr(jpkg, name) and hasattr(tpkg, name)
+    """Every name the port has a module for comes from both packages (a
+    dotted name from the module it names)."""
+    import importlib
+
+    *mod, attr = name.split(".")
+    jmod, tmod = jpkg, tpkg
+    if mod:
+        jmod = importlib.import_module(".".join([jpkg.__name__, *mod]))
+        tmod = importlib.import_module(".".join([tpkg.__name__, *mod]))
+    assert hasattr(jmod, attr) and hasattr(tmod, attr)
     if name == "__version__":
         assert tpkg.__version__ == jpkg.__version__
+    if name.endswith("_AXIS"):
+        assert getattr(jmod, attr) == getattr(tmod, attr)
 
 
 def _imports(path):

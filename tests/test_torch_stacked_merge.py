@@ -117,6 +117,25 @@ def test_capped_overflow_both_ways(nb, w, rows, cap):
         _same_table(jt, tt)
 
 
+@pytest.mark.parametrize("nb,w,rows,capacity,cap", [
+    (4, 2, 0, 16, 0), (4, 2, 0, 16, 1), (4, 2, 3, 16, 1), (8, 1, 5, 8, 1),
+    (2, 1, 5, 8, 1), (4, 1, 5, 8, 3)])
+def test_capped_small_cap(nb, w, rows, capacity, cap):
+    """Caps of 0 to 3 rows, where one pair's compacted table is a strided
+    view: ``n``, the overflow flag and the live rows equal JAX's."""
+    rng = np.random.default_rng(nb * 100 + rows * 10 + cap)
+    ks, cs, _ = _rand_tables(rng, nb, rows, w, capacity,
+                             1 << 30 if w == 1 else None)
+    jt, jov = J.merge_stacked_tree_capped(jnp.asarray(ks), jnp.asarray(cs),
+                                          cap=cap)
+    tt, tov = T.merge_stacked_tree_capped(_t(ks), _t(cs), cap=cap)
+    n = int(jt.n)
+    assert int(tt.n) == n
+    assert bool(tov) is bool(jov)
+    assert np.array_equal(_u32(tt.kmers)[:n], np.asarray(jt.kmers)[:n])
+    assert np.array_equal(tt.counts[:n].numpy(), np.asarray(jt.counts)[:n])
+
+
 @pytest.mark.parametrize("c_len,w", [(64, 1), (64, 2), (32, 3)])
 def test_bitonic_merge_pair_and_dedup(c_len, w):
     """Keys equal to the JAX network's; counts equal as (key, count)
