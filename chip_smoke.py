@@ -175,8 +175,31 @@ numpy ground truth computed here:
      rank must return the same result, and each rank must launch the sort
      kernels in its counts and rank_rows in each sharded graph stage; the
      ranks' launches join the kernels line.
+ 15. the tools (run right after phase 9): (a) ``Graph.create`` on the
+     bench bank (k=31, abundance-min 3, ``build_branching=False``), then
+     ``tools.dbgcheck.check_graph`` and ``tools.dbgtopology.topology_matrix``
+     on it:
+     every figure against numpy (node count, out-degree sum, branching
+     count, the three checksums as Python-integer sums of the uint64
+     values, both abundances; the in/out-degree histogram) and against the
+     same calls on a graph made on the CPU from the card's table; (b) both
+     CLIs as processes on the card on the bench bank, their printed blocks
+     (bar ``time``) equal to (a)'s; (c) the table's k-mer values written
+     through ``BagFile`` as 64-bit records and ``tools.kmer_checksum`` as a
+     process: count and checksum equal to (a)'s; (d) ``Graph(31, table,
+     storage=FileStorage(...))`` with ``build_postsolid()`` (default flags),
+     ``save_solid`` and ``save_config`` on the card: every blob read back
+     equal to the arrays in memory and every stage's state bit set; the
+     same build on the CPU into a second FileStorage: every ``.data`` file
+     byte-equal, every property equal bar the time-valued xml dump;
+     (e) ``system.info``: the card's name as nvidia-smi prints it; then
+     ``check_graph`` on phase 9c's stress graph (its adjacency held, so no
+     rank_rows) under torch.profiler (wall, device time and its share):
+     checksumBranching equal to ``checksum_branching()``, nbSuccessors to
+     the out-degree sum, abundance to the counts' sum. The processes and
+     the CPU build run beside (a)-(e); each step's time is logged.
 
-Phases 2-4 and 6-14 each run with the kernels' launch counters set to 0
+Phases 2-4 and 6-15 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels in the counts;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
@@ -185,15 +208,17 @@ phase 12; rank_rows in each part of phases 10 and 11, the MPHF's fallback
 search and the unitig candidate ranks; the two merge kernels, exactly
 twice log2(tables) times, in each stacked tree of phase 13, tile_sort in
 ``merge_stacked`` and the three limb-sort kernels in its counts and Leon's
-device stage). The rank index of a graph's table
-is built once, in its postsolid build (phases 9 and 12's create), and
+device stage; rank_rows and the three limb-sort kernels in phase 15's
+``Graph.create``, rank_rows in its ``check_graph``). The rank index of a
+graph's table is built once, in its postsolid build (phases 9 and 12's create), and
 walked again by phases 10-12 without a build. In phase 12 ``simplify()`` with
 ``contigs(traversal="monument")`` must launch rank_rows exactly once per
 chunk of one full sweep, and ``unitig_graph()`` of the simplified graph
 (a fresh Simplifications, as in the JAX package) once more per chunk. The stress counts also log the peak of device memory allocated
 during the count. h5py is not installed beside the card, so the MPHF's
 ``.h5`` datasets, ``Graph.load`` and ``dbginfo`` are held by the CPU tests
-only.
+only; phase 15d persists a graph built on the card through the file
+backend instead.
 Exits non-zero on any failure (and at once without a CUDA device). The
 line before the last is the card's name and power limit as nvidia-smi
 reports them; the last line is the JSON result.
@@ -1787,6 +1812,311 @@ def phase_postsolid_stress(tally, S, R, stress_fold, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the graph and bank tools on the card, and a graph written to disk
+# ---------------------------------------------------------------------------
+
+# time-valued properties by property file: the configuration's xml dump
+# holds Graph.info, whose postsolid_time.* values are wall times
+TIME_VALUED = {"configuration.json": ("xml",)}
+CHECK_KEYS = ("nbSolids", "nbSuccessors", "nbBranching", "checkumNodes",
+              "checksumSuccessors", "checksumBranching", "abundance",
+              "abundanceBranching")
+
+
+def check_block(stats: dict) -> list:
+    """dbgcheck's printed lines for ``stats``, less the time line."""
+    return [""] + [f"{key:<18} = {stats[key]}  " for key in CHECK_KEYS] \
+        + [""]
+
+
+def topology_block(n: int, mat: np.ndarray) -> list:
+    """dbgtopology's printed lines."""
+    return [f"nodes: {n}", "in\\out " + " ".join(f"{j:>8}" for j in
+                                                 range(5))] \
+        + [f"{i:>6} " + " ".join(f"{mat[i, j]:>8}" for j in range(5))
+           for i in range(5)] \
+        + [f"branching (in!=1 or out!=1): {int(mat.sum() - mat[1, 1])}"]
+
+
+def profiled(torch, fn):
+    """(fn(), wall s, device s) with fn run under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return out, wall, sum(r[1] for r in device_events(torch, prof)) / 1e6
+
+
+def storage_files(folder: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def check_stored_graph(graph, st) -> None:
+    """Phase 15d: every blob of a graph's FileStorage read back equal to
+    the graph's arrays in memory, every stage's state bit set."""
+    from gatb_core_tpu_torch.convert import u32_to_numpy
+    from gatb_core_tpu_torch.storage import hdf5 as H
+
+    def records(limbs, counts):
+        out = np.zeros(len(counts), H.count_dtype(1))
+        out["value"] = H.limbs_to_words64(limbs)
+        out["abundance"] = counts
+        return out
+
+    deb, mphf = graph._debloom, graph._mphf
+    casc = st.group("debloom").group("cascading")
+    t4 = H.limbs_to_words64(deb.cascade.t4)
+    blobs = [
+        (st.group("dsk"), "solid",
+         records(graph.solid_limbs, graph.solid_counts)),
+        (st.group("bloom"), "bloom", deb.bloom.to_numpy()),
+        (st.group("debloom"), "cfp_all", H.limbs_to_words64(deb.cfp)),
+        (st.group("debloom"), "cfp", t4), (casc, "t4", t4),
+        (st.group("adjacency"), "masks", graph._adjacency),
+        (st.group("branching"), "nodes",
+         records(graph._branching, graph._branching_counts)),
+        (st.group("mphf"), "bits", u32_to_numpy(mphf.bits)),
+        (st.group("mphf"), "fallback_keys", u32_to_numpy(mphf.fallback_keys)),
+        (st.group("mphf"), "abundance", graph.abundance_codes)]
+    blobs += [(casc.group(f"bloom{i + 2}"), "bloom", b.to_numpy())
+              for i, b in enumerate(deb.cascade.blooms)]
+    blobs += [(st.group("mphf"), name, getattr(mphf, name).cpu().numpy())
+              for name in ("prefix", "perm", "fallback_ranks")]
+    for group, name, want in blobs:
+        got = group.get_dataset(name)
+        check(got is not None and got.dtype == want.dtype
+              and got.shape == want.shape
+              and got.tobytes() == want.tobytes(),
+              f"15d: {group._id}/{name} read back differs from memory")
+    for bit in ("CONFIGURATION", "SORTING_COUNT", "MPHF", "BLOOM",
+                "DEBLOOM", "ADJACENCY", "BRANCHING"):
+        check(st.check_state(getattr(H, f"STATE_{bit}_DONE")),
+              f"15d: state bit {bit}_DONE not set")
+
+
+def stored_graph(folder: str, limbs, counts, device):
+    """Phase 15d: Graph(31, table) with a FileStorage, its postsolid
+    stages with the default flags, then save_solid and save_config."""
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+    from gatb_core_tpu_torch.storage import hdf5 as H
+    from gatb_core_tpu_torch.storage.filedir import FileStorage
+
+    t0 = time.time()
+    st = FileStorage(folder, "w")
+    g = Graph(31, limbs, counts, storage=st, device=device)
+    g.build_postsolid()
+    H.save_solid(st, g.solid_limbs, g.solid_counts, 31)
+    H.save_config(st, g.info)
+    return g, st, time.time() - t0
+
+
+def phase_tools(tally, S, torch, bench_path: str, truth, stress, tmp: str,
+                card: str):
+    """Phase 15: dbgcheck and dbgtopology in-process on the bench graph
+    against numpy and a CPU graph, both CLIs and kmer_checksum as
+    processes on the card, the graph's stages through FileStorage on the
+    card and the CPU, system.info; then check_graph on the stress graph.
+    The processes and the CPU build (a thread) run while this thread
+    checks the card's results; each step's time is logged from the
+    phase's start."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gatb_core_tpu_torch.collections.containers import BagCache, \
+        BagFile
+    from gatb_core_tpu_torch.debruijn.graph import Graph
+    from gatb_core_tpu_torch.system.info import SystemInfo, library_info
+    from gatb_core_tpu_torch.tools.dbgcheck import check_graph, largeint_hex
+    from gatb_core_tpu_torch.tools.dbgtopology import topology_matrix
+
+    t_phase = time.time()
+    secs, at = {}, {}
+    procs = {}
+
+    def start(name, *args):
+        procs[name] = (time.time(), subprocess.Popen(
+            [sys.executable, "-m", f"gatb_core_tpu_torch.tools.{name}",
+             *args], cwd=tmp, env=dict(os.environ, PYTHONPATH=HERE),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def finish(name) -> list:
+        t0, proc = procs[name]
+        out, _ = proc.communicate(timeout=600)
+        secs[f"{name} process"] = time.time() - t0
+        check(proc.returncode == 0, f"15: {name} failed: {out[-2000:]}")
+        return out.splitlines()
+
+    def done(step, t0):
+        secs[step] = time.time() - t0
+        at[step] = time.time() - t_phase
+
+    pool = ThreadPoolExecutor(1)
+    try:
+        # (b) both CLIs as processes on the card: they take seconds to
+        # reach it, so they start first
+        args = ["-in", bench_path, "-kmer-size", "31", "-abundance-min", "3"]
+        start("dbgcheck", *args)
+        start("dbgtopology", *args)
+        # (a) in-process on the card
+        t0 = time.time()
+        graph, got_c = tally.counted(
+            S, "phase 15a Graph.create", lambda: Graph.create(
+                bank=bench_path, kmer_size=31, abundance_min=3,
+                build_branching=False), path=GRAPH_KERNELS)
+        done("create", t0)
+        t0 = time.time()
+        stats, got_k = tally.counted(
+            S, "phase 15a check_graph", lambda: check_graph(graph),
+            path=("rank_rows",))
+        torch.cuda.synchronize()
+        done("check_graph", t0)
+        t0 = time.time()
+        mat = topology_matrix(graph)
+        done("topology_matrix", t0)
+        # (d) the same stages built on the CPU from the card's table, in a
+        # thread while this one checks the card's
+        cpu_job = pool.submit(stored_graph, os.path.join(tmp, "g_cpu"),
+                              graph.solid_limbs, graph.solid_counts, "cpu")
+        # (c) the table's k-mer values as BagFile records, kmer_checksum
+        t0 = time.time()
+        values = limbs_to_u64(graph.solid_limbs)
+        bag_path = os.path.join(tmp, "bench_kmers.bin")
+        with BagFile(bag_path) as bag:
+            cache = BagCache(bag)
+            for v in values.view(np.int64).tolist():
+                cache.insert(v)
+            cache.flush()
+        done("BagFile write", t0)
+        start("kmer_checksum", bag_path)
+        # (a) against numpy
+        t0 = time.time()
+        vals, cnts = truth
+        solid = cnts >= 3
+        nodes, counts = vals[solid], cnts[solid].astype(np.int64)
+        cands = neighbors_u64(nodes, 31)
+        member = member_u64(nodes, cands.ravel()).reshape(-1, 8)
+        masks = masks_of(member)
+        br = branching_of(masks)
+        want = {
+            "nbSolids": len(nodes),
+            "nbSuccessors": int(member[:, :4].sum()),
+            "nbBranching": int(br.sum()),
+            "checkumNodes": largeint_hex(sum(nodes.tolist()), 1),
+            "checksumSuccessors": largeint_hex(
+                sum(cands[:, :4][member[:, :4]].tolist()), 1),
+            "checksumBranching": largeint_hex(sum(nodes[br].tolist()), 1),
+            "abundance": int(counts.sum()),
+            "abundanceBranching": int(counts[br].sum())}
+        check({k: stats[k] for k in CHECK_KEYS} == want,
+              f"15a: check_graph {stats} differs from numpy {want}")
+        want_mat = np.zeros((5, 5), np.int64)
+        np.add.at(want_mat, (popcount4(masks >> 4).astype(np.int64),
+                             popcount4(masks & 0x0F).astype(np.int64)), 1)
+        check(np.array_equal(mat, want_mat),
+              "15a: topology_matrix differs from numpy")
+        done("numpy truth", t0)
+        # (d) on the card, every blob read back
+        card_g, st, secs["FileStorage build on the card"] = stored_graph(
+            os.path.join(tmp, "g"), graph.solid_limbs, graph.solid_counts,
+            "cuda")
+        t0 = time.time()
+        check_stored_graph(card_g, st)
+        done("read back", t0)
+        # (e) system info
+        info, lib = SystemInfo.version_info(), library_info()
+        check(info["devices"] and info["devices"][0]
+              == torch.cuda.get_device_name(0)
+              == card_line().split(",")[0].strip()
+              and info["cuda"] == torch.version.cuda
+              and lib["torch"] == torch.__version__,
+              f"15e: system info {info} differs from nvidia-smi")
+        # (d) against the CPU's build, then (a)'s two calls on the CPU graph
+        cpu_g, st_cpu, secs["FileStorage build on the CPU"] = \
+            cpu_job.result()
+        at["FileStorage build on the CPU"] = time.time() - t_phase
+        files, files_cpu = storage_files(st.folder), \
+            storage_files(st_cpu.folder)
+        check(sorted(files) == sorted(files_cpu),
+              "15d: the card's and the CPU's storage trees differ")
+        data = [n for n in files if n.endswith(".data")]
+        check(all(files[n] == files_cpu[n] for n in data),
+              "15d: a .data file differs between the card and the CPU")
+        for n in files:
+            if n.endswith(".json"):
+                a, b = json.loads(files[n]), json.loads(files_cpu[n])
+                skip = TIME_VALUED.get(n, ())
+                check(sorted(a) == sorted(b) and all(
+                    a[k] == b[k] for k in a if k not in skip),
+                    f"15d: properties of {n} differ")
+        t0 = time.time()
+        stats_cpu = check_graph(cpu_g)
+        check({k: stats_cpu[k] for k in CHECK_KEYS}
+              == {k: stats[k] for k in CHECK_KEYS}
+              and np.array_equal(topology_matrix(cpu_g), mat),
+              "15a: check_graph or topology_matrix differ on the CPU")
+        done("check_graph on the CPU", t0)
+        # (b), (c): the processes' printed blocks
+        out = [line for line in finish("dbgcheck")
+               if not line.startswith("time ")]
+        check(out[-len(CHECK_KEYS) - 2:] == check_block(stats),
+              f"15b: dbgcheck printed {out[-12:]}")
+        out = finish("dbgtopology")
+        check(out[-8:] == topology_block(graph.nb_nodes, mat),
+              f"15b: dbgtopology printed {out[-8:]}")
+        out = finish("kmer_checksum")
+        check(out[-1] == f"FOUND {stats['nbSolids']} WITH CHECKSUM "
+              f"{stats['checkumNodes'] or '0'}",
+              f"15c: kmer_checksum printed {out[-1:]}")
+        at["processes"] = time.time() - t_phase
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+        pool.shutdown(wait=True)
+    os.remove(bag_path)
+    # the stress graph (phase 9c) holds its adjacency: no rank_rows; its
+    # device-time share under torch.profiler, the card to itself again
+    t0 = time.time()
+    (got_s, s_wall, s_dev), got_sk = tally.counted(
+        S, "phase 15 stress check_graph", lambda: profiled(
+            torch, lambda: check_graph(stress)), path=())
+    s_all = time.time() - t0
+    adj = stress._adjacency
+    check(got_sk["rank_rows"] == 0,
+          "15: check_graph on the stress graph launched rank_rows")
+    check(got_s["checksumBranching"] == stress.checksum_branching()
+          and got_s["nbSuccessors"] == int(popcount4(adj & 0x0F).sum(
+              dtype=np.int64))
+          and got_s["abundance"] == int(stress.solid_counts.sum(
+              dtype=np.int64)),
+          f"15: check_graph on the stress graph: {got_s}")
+    log(f"phase 15 tools: bench graph {graph.nb_nodes} nodes; check_graph "
+        f"{ {k: stats[k] for k in CHECK_KEYS} } equal to numpy, to a CPU "
+        f"graph and to the dbgcheck process; topology equal likewise; "
+        f"kmer_checksum process equal; FileStorage: {len(data)} .data "
+        f"files of the card's build byte-equal to the CPU's, every blob "
+        f"read back equal, every stage's bit set; step walls "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + "; done at (s from the phase's start) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in at.items())
+        + f"; stress check_graph ({stress.nb_nodes} nodes, adjacency held, "
+        f"no rank_rows) {s_wall:.3f} s wall under the profiler, device "
+        f"{s_dev:.4f} s (share {s_dev / s_wall:.3f}), {s_all:.1f} s with "
+        f"the profiler's start and read-out; phase "
+        f"{time.time() - t_phase:.1f} s; {card}")
+    return {"create": got_c, "check_graph": got_k, "stress": got_sk}
+
+
+# ---------------------------------------------------------------------------
 # phases 10-11: the MPHF and unitig compaction on the three postsolid tables
 # ---------------------------------------------------------------------------
 
@@ -3236,6 +3566,8 @@ def main() -> int:
         graph_got["stress"], err_g, graphs["stress"], pick = \
             phase_postsolid_stress(tally, S, R, stress_fold, card)
         del stress_fold
+        tools_got = phase_tools(tally, S, torch, bench_path, truth,
+                                graphs["stress"], tmp, card)
         mphf_got = {name: phase_mphf(tally, S, R, name, g, card,
                                      sample=pick if name == "stress"
                                      else None)
@@ -3269,6 +3601,7 @@ def main() -> int:
     log(f"launches in the unitig builds: {unitig_got}")
     log(f"launches in phase 12: {simplify_got}")
     log(f"launches in phase 14: {mesh_got}")
+    log(f"launches in phase 15: {tools_got}")
     err_s = phase_shapes(torch, S, R, tally.shapes)
     err["rank_rows"] = max(err["rank_rows"], err_g)
     for name in err:

@@ -6,7 +6,9 @@ the reference it is tested against. The port covers counting (fold path
 and LSM merge chain, multibank), the whole graph build of dbgh5 (MPHF,
 Bloom, debloom, adjacency, branching, the node queries), ``Graph.load``,
 unitig compaction, simplification (tips, bulges, erroneous connections),
-the Monument assembly and Leon compression (both ``.leon`` formats):
+the Monument assembly, Leon compression (both ``.leon`` formats), the
+mesh paths and the host tail (containers, the file storage backend,
+``system.info``) with every CLI tool of the JAX package:
 
     from gatb_core_tpu_torch import Graph, count_kmers
     res = count_kmers("reads.fa", kmer_size=31, abundance_min=3)
@@ -19,6 +21,7 @@ the Monument assembly and Leon compression (both ``.leon`` formats):
     python -m gatb_core_tpu_torch.tools.dbginfo -in graph.h5
     python -m gatb_core_tpu_torch.tools.leon -c -file reads.fastq
     python -m gatb_core_tpu_torch.tools.leon -d -file reads.fastq.leon
+    python -m gatb_core_tpu_torch.tools.dbgcheck -in reads.fa -kmer-size 31
 
 Tensors live on ``device="cuda"`` by default; the Pallas sort kernels of
 the JAX package are hand-written CUDA kernels here (ops/limb_sort.py), as

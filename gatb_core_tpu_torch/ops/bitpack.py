@@ -35,6 +35,24 @@ def ascii_to_codes_np(buf: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return codes, valid
 
 
+def string_to_codes(seq: str) -> tuple[np.ndarray, np.ndarray]:
+    return ascii_to_codes_np(np.frombuffer(seq.encode("ascii"), dtype=np.uint8))
+
+
+def codes_to_string(codes: np.ndarray) -> str:
+    return "".join(NUCLEOTIDES[c] for c in np.asarray(codes))
+
+
+def ascii_to_codes(buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device-side: uint8 ASCII tensor -> (codes uint8, valid bool), on
+    the tensor's device."""
+    buf = buf.to(torch.uint8)
+    codes = (buf >> 1) & 3
+    up = buf & 0xDF  # fold lowercase onto uppercase
+    valid = (up == 65) | (up == 67) | (up == 71) | (up == 84)  # A C G T
+    return codes, valid
+
+
 def pack_batch_np(codes: np.ndarray, valid: np.ndarray):
     """Host-side packing of a (B, L) code/validity batch into the packed
     transfer format (2 bits/base + 1 bit/base): (words (B, ceil(L/16))

@@ -9,6 +9,8 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -291,6 +293,65 @@ def test_graph_on_card_matches_cpu(cuda, k):
                               b.contains(q, mode=mode))
     assert np.array_equal(a.node_index(q), b.node_index(q))
     assert np.array_equal(a.adjacency_masks(q), b.adjacency_masks(q))
+
+
+def test_ascii_to_codes_on_card_matches_cpu(cuda):
+    from gatb_core_tpu_torch.ops.bitpack import ascii_to_codes
+
+    buf = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    codes, valid = ascii_to_codes(buf.to(cuda))
+    assert codes.is_cuda and valid.is_cuda
+    want = ascii_to_codes(buf)
+    assert torch.equal(codes.cpu(), want[0])
+    assert torch.equal(valid.cpu(), want[1])
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_check_graph_on_card_matches_cpu(cuda, k, tmp_path):
+    """dbgcheck's sums on the card, over several sweep chunks, against the
+    same graph on the CPU; the topology matrix alike; the FileStorage
+    blobs of the card's postsolid build byte-equal to the CPU's."""
+    from gatb_core_tpu_torch import Graph
+    from gatb_core_tpu_torch.ops import sortops
+    from gatb_core_tpu_torch.storage.filedir import FileStorage
+    from gatb_core_tpu_torch.tools.dbgcheck import check_graph
+    from gatb_core_tpu_torch.tools.dbgtopology import topology_matrix
+
+    rng = np.random.default_rng(k + 1)
+    genome = "".join(rng.choice(list("ACGT"), size=6000))
+    reads = [genome[i:i + 120] for i in range(0, 5880, 7)]
+    reads += [r[:60] + "A" + r[61:] for r in reads[::9]]
+    kw = dict(kmer_size=k, abundance_min=1, batch_reads=64,
+              superbatch_rows=1 << 16, build_branching=False)
+    a = Graph.create(BankStrings(*reads), device="cuda", **kw)
+    b = Graph.create(BankStrings(*reads), device="cpu", **kw)
+    chunk = sortops.sweep_chunk
+    try:
+        sortops.sweep_chunk = lambda n: 1000
+        got = check_graph(a)
+    finally:
+        sortops.sweep_chunk = chunk
+    want = check_graph(b)
+    got.pop("time")
+    want.pop("time")
+    assert got == want and got["nbBranching"] > 2
+    assert got["checksumBranching"] == b.checksum_branching()
+    assert np.array_equal(topology_matrix(a), topology_matrix(b))
+    folders = []
+    for graph, device in ((a, "cuda"), (b, "cpu")):
+        st = FileStorage(str(tmp_path / device), "w")
+        g = Graph(k, graph.solid_limbs, graph.solid_counts, storage=st,
+                  device=device)
+        g.build_postsolid()
+        folders.append(st.folder)
+    names = sorted(n for n in os.listdir(folders[0]) if n.endswith(".data"))
+    assert names == sorted(n for n in os.listdir(folders[1])
+                           if n.endswith(".data"))
+    assert "mphf.bits.data" in names and "bloom.bloom.data" in names
+    for n in names:
+        with open(os.path.join(folders[0], n), "rb") as f, \
+                open(os.path.join(folders[1], n), "rb") as g:
+            assert f.read() == g.read(), n
 
 
 @pytest.mark.parametrize("k", [31, 63])

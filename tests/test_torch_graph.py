@@ -324,7 +324,23 @@ def test_graph_defaults_to_the_card():
     "parallel.postsolid.distributed_debloom_probe",
     "parallel.postsolid.distributed_cand_ranks",
     "parallel.postsolid.distributed_pointer_double",
-    "parallel.postsolid.distributed_cut_cycles"])
+    "parallel.postsolid.distributed_cut_cycles",
+    "ops.bitpack.string_to_codes", "ops.bitpack.codes_to_string",
+    "ops.bitpack.ascii_to_codes", "collections.containers.OAHash",
+    "collections.containers.Hash16", "collections.containers.ContainerSet",
+    "collections.containers.BagFile", "collections.containers.BagCache",
+    "collections.containers.BagPartition",
+    "collections.containers.IteratorFile", "storage.filedir.FileGroup",
+    "storage.filedir.FileStorage", "storage.filedir.StorageFactory",
+    "system.info.SystemInfo", "system.info.host_info",
+    "system.info.library_info", "system.info.FileSystem",
+    "tools.dbgcheck.largeint_hex", "tools.dbgcheck.check_graph",
+    "tools.dbgcheck.main", "tools.dbgtopology.topology_matrix",
+    "tools.dbgtopology.main", "tools.kmer_checksum.main",
+    "tools.clear_cache.clear", "tools.clear_cache.main",
+    "tools.new_project.create_project", "tools.new_project.main",
+    "tools.bank_download.download", "tools.bank_download.annotate",
+    "tools.bank_download.main"])
 def test_package_surface(name):
     """Every name the port has a module for comes from both packages (a
     dotted name from the module it names)."""
