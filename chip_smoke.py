@@ -198,8 +198,19 @@ numpy ground truth computed here:
      checksumBranching equal to ``checksum_branching()``, nbSuccessors to
      the out-degree sum, abundance to the counts' sum. The processes and
      the CPU build run beside (a)-(e); each step's time is logged.
+ 16. the examples (after phase 14): every script of examples_torch/ (the
+     mirrors of examples/) with ``--device cuda`` on seeded stand-ins for
+     the reference's test/db (``_runner.fixture_db``), its printed lines
+     (``_runner.normalise``) equal to the same script's run with
+     ``--device cpu`` in a process pool beside the card's runs; the mesh
+     scripts as processes of 8 gloo ranks on the one card (collectives
+     staged through the host, so no multi-card figure). The scripts that
+     need h5py (``NEEDS_H5PY``) are named and not run where it is
+     missing. Each in-process script's card wall time and launches are
+     logged; every one of the sort kernels and rank_rows must launch in
+     the phase.
 
-Phases 2-4 and 6-15 each run with the kernels' launch counters set to 0
+Phases 2-4 and 6-16 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels in the counts;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
@@ -209,7 +220,8 @@ search and the unitig candidate ranks; the two merge kernels, exactly
 twice log2(tables) times, in each stacked tree of phase 13, tile_sort in
 ``merge_stacked`` and the three limb-sort kernels in its counts and Leon's
 device stage; rank_rows and the three limb-sort kernels in phase 15's
-``Graph.create``, rank_rows in its ``check_graph``). The rank index of a
+``Graph.create``, rank_rows in its ``check_graph``; the sort kernels and
+rank_rows over the whole of phase 16). The rank index of a
 graph's table is built once, in its postsolid build (phases 9 and 12's create), and
 walked again by phases 10-12 without a build. In phase 12 ``simplify()`` with
 ``contigs(traversal="monument")`` must launch rank_rows exactly once per
@@ -3371,6 +3383,208 @@ def phase_mesh_ranks(tally, tmp: str, bench_path: str, bench_fold,
     return total, shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the examples_torch/ mirrors of examples/ on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(HERE, "examples_torch")
+# mirrors that write or read an HDF5 file, which needs h5py (not installed
+# beside the card); they run here too wherever ``import h5py`` works
+NEEDS_H5PY = {
+    "storage1_hdf5.py": "Graph.create(output=...h5) and Graph.load",
+    "storage3_streams.py": "byte streams in an HDF5 Storage",
+    "leon1_interop.py": "the reference .leon container is an HDF5 file",
+    "tools1_cli_tour.py": "dbgh5 writes a .h5 that the other tools load",
+}
+# the kernels each in-process mirror must launch: the sort kernels in
+# every count, rank_rows too in every graph build; the rest are host code
+# or torch ops alone (k-mer extraction, the minimizer census, the linear
+# counter)
+EXAMPLE_PATHS = {
+    **{name: SORT_KERNELS for name in (
+        "kmer2_count.py", "kmer3_count_processor.py", "kmer5_histogram.py",
+        "kmer9_multibank.py", "proto2_histo2d.py", "storage4_kff.py",
+        "leon1_interop.py", "leon2_roundtrip.py")},
+    **{name: GRAPH_KERNELS for name in (
+        "debruijn1_graph.py", "debruijn2_unitigs.py", "debruijn3_queries.py",
+        "debruijn4_simplify.py", "debruijn5_gfa.py", "debruijn6_monument.py",
+        "debruijn7_membership.py", "debruijn8_branching.py",
+        "debruijn9_iterative_extensions.py", "debruijn10_node_state.py",
+        "debruijn11_frontline.py", "traversal1_contigs.py",
+        "proto1_microsnp.py", "storage1_hdf5.py", "tools1_cli_tour.py")},
+}
+
+
+# the mesh mirrors: the function each of their ranks runs, the kernels
+# each rank must launch in it, and those their ranks together must launch
+# (multichip1's exchange sorts fewer rows a rank than one tile holds: no
+# merge level)
+MESH_EXAMPLES = {
+    "multichip1_exchange.py": ("count", ("tile_sort",), ("tile_sort",)),
+    "multichip2_distributed_count.py": ("count", ("tile_sort",),
+                                        SORT_KERNELS),
+    "multichip3_postsolid.py": ("compare", ("tile_sort", "rank_rows"),
+                                GRAPH_KERNELS),
+}
+
+
+def mesh_example_rank(mesh, fn, *args) -> dict:
+    """A rank of a phase 16 mesh mirror: the mirror's own rank function
+    with this rank's launch counters at 0."""
+    line, secs, launches, shapes = _rank_counts(mesh,
+                                                lambda: fn(mesh, *args))
+    return {"line": line, "seconds": secs, "launches": launches,
+            "shapes": shapes}
+
+
+def mesh_example(tally, ranks, name: str):
+    """Run the mesh mirror ``name`` (imported: its rank function on its
+    own inputs) on the 8 ranks of ``ranks``, as its ``main`` does; every
+    rank must return the same line and launch the kernels its entry of
+    ``MESH_EXAMPLES`` names. Adds the ranks' launches and shapes to the
+    tally; returns what ``main`` prints and the launches summed over the
+    ranks."""
+    import importlib
+
+    fn_name, need, path = MESH_EXAMPLES[name]
+    mod = importlib.import_module(name[:-3])
+    outs = ranks.run(mesh_example_rank, getattr(mod, fn_name),
+                     *mod.inputs())
+    got = {key: 0 for key in MESH_RANK_KERNELS}
+    for rank, out in enumerate(outs):
+        check(all(out["launches"][key] > 0 for key in need),
+              f"16 {name}: rank {rank} launched no {'/'.join(need)}: "
+              f"{out['launches']}")
+        for key in got:
+            got[key] += out["launches"][key]
+            tally.shapes[key] |= out["shapes"][key]
+    check(all(out["line"] == outs[0]["line"] for out in outs),
+          f"16 {name}: the ranks' lines differ")
+    check(all(got[key] > 0 for key in path),
+          f"16 {name}: a kernel of the path was not launched: {got}")
+    for key in got:
+        tally.launches[key] += got[key]
+    return outs[0]["line"] + "\n", got
+
+
+def example_on_cpu(path: str, db: str):
+    """One mirror with ``--device cpu`` (a worker of phase 16's process
+    pool, on 2 torch threads beside the card's runs): its output and wall
+    seconds."""
+    import torch
+
+    torch.set_num_threads(2)
+    sys.path.insert(0, EXAMPLES)
+    from _runner import run_example
+
+    t0 = time.time()
+    out = run_example(path, db, argv=["--device", "cpu"])
+    return out, time.time() - t0
+
+
+def phase_examples(tally, S, torch, tmp: str, card: str) -> dict:
+    """Phase 16: every mirror of examples_torch/ on the card (--device
+    cuda) on a seeded stand-in for the reference's test/db, its printed
+    lines (normalised) equal to the same mirror's run on the CPU; the CPU
+    runs go in process pools beside the card's. In-process mirrors are
+    counted one by one (their launches of the sort kernels and rank_rows;
+    ``EXAMPLE_PATHS``); the mesh mirrors' rank functions run on one pool
+    of 8 gloo ranks on the one card (collectives staged through the host;
+    not a multi-card figure), each rank counted (``MESH_EXAMPLES``). Every
+    kernel of the list must launch in the phase. Returns the phase's
+    launches."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from gatb_core_tpu_torch.parallel.mesh import RankPool
+
+    sys.path.insert(0, EXAMPLES)
+    from _runner import fixture_db, normalise, run_example
+
+    t_phase = time.time()
+    try:
+        import h5py  # noqa: F401
+        skip = {}
+    except ImportError:
+        skip = NEEDS_H5PY
+    for name, why in skip.items():
+        log(f"phase 16 {name}: not run on the card: needs h5py ({why})")
+    db = fixture_db(os.path.join(tmp, "examples_db"), seed=1)
+    names = sorted(f for f in os.listdir(EXAMPLES)
+                   if f.endswith(".py") and not f.startswith("_")
+                   and f not in skip)
+    check(len(names) + len(skip) == 44, "16: the mirror list is not 44")
+    # on the card the mesh mirrors share one pool of 8 ranks; on the CPU
+    # they run one at a time (each spawns 8 ranks, which the host's cores
+    # start and stage), the other CPU runs in a pool of 2 beside them; the
+    # card does not wait for the CPU runs
+    inproc = [n for n in names if n not in MESH_EXAMPLES]
+    mesh = [n for n in names if n in MESH_EXAMPLES]
+    pool = ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"))
+    mesh_pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    total = {k: 0 for k in GRAPH_KERNELS}
+    walls, outs = {}, {}
+
+    def on_card(name):
+        t0 = time.time()
+        out = run_example(os.path.join(EXAMPLES, name), db,
+                          argv=["--device", "cuda"])
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    try:
+        cpu = {n: (mesh_pool if n in mesh else pool).submit(
+            example_on_cpu, os.path.join(EXAMPLES, n), db) for n in names}
+        for name in inproc:
+            (outs[name], walls[name]), got = tally.counted(
+                S, f"phase 16 {name}", lambda: on_card(name),
+                path=EXAMPLE_PATHS.get(name, ()))
+            for k in total:
+                total[k] += got[k]
+            log(f"phase 16 {name}: card {walls[name]:.3f} s; launches "
+                f"{ {k: got[k] for k in GRAPH_KERNELS} }; "
+                f"{outs[name].strip().splitlines()[-1][:100]}")
+        t0 = time.time()
+        with RankPool(8, device="cuda", backend="gloo", timeout=300) as ranks:
+            spawn_s = time.time() - t0
+            for name in mesh:
+                t0 = time.time()
+                outs[name], got = mesh_example(tally, ranks, name)
+                walls[name] = time.time() - t0
+                for k in total:
+                    total[k] += got[k]
+                log(f"phase 16 {name}: card {walls[name]:.3f} s (8 gloo "
+                    f"ranks on one card, staged through the host; not a "
+                    f"multi-card figure); launches summed over the ranks "
+                    f"{got}; {outs[name].strip()[:100]}")
+        t_card = time.time() - t_phase
+        for name in names:
+            out_cpu, cpu_s = cpu[name].result(timeout=900)
+            check(outs[name].strip()
+                  and normalise(outs[name]) == normalise(out_cpu),
+                  f"16 {name}: the card printed {outs[name]!r}, the CPU "
+                  f"{out_cpu!r}")
+            log(f"phase 16 {name}: CPU {cpu_s:.3f} s, equal to the card's")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        mesh_pool.shutdown(wait=True, cancel_futures=True)
+    slowest = sorted(inproc, key=walls.get, reverse=True)[:5]
+    log(f"phase 16 examples: {len(names)} mirrors on the card equal to "
+        f"their CPU runs, {len(skip)} not run (h5py); card walls: the "
+        f"in-process mirrors {sum(walls[n] for n in inproc):.1f} s in all "
+        f"(slowest " + ", ".join(f"{n} {walls[n]:.3f} s" for n in slowest)
+        + f"), the mesh mirrors (one pool of 8 gloo ranks on one card, "
+        f"staged through the host; not a multi-card figure) spawn "
+        f"{spawn_s:.1f} s, then "
+        + ", ".join(f"{walls[n]:.1f}" for n in mesh) + f" s; launches "
+        f"{total}; the "
+        f"card's runs done at {t_card:.1f} s, phase "
+        f"{time.time() - t_phase:.1f} s; {card}")
+    check(all(total[k] > 0 for k in GRAPH_KERNELS),
+          f"16: a kernel was launched by no mirror: {total}")
+    return total
+
+
 def device_events(torch, prof):
     """(name, self device microseconds, calls) of every device-side event
     (kernels and copies) of a profile, longest first."""
@@ -3595,6 +3809,7 @@ def main() -> int:
             tally.launches[key] += n
             tally.shapes[key] |= rank_shapes[key]
         log(f"phase 14: {mesh_s + time.time() - t0:.1f} s")
+        examples_got = phase_examples(tally, S, torch, tmp, card)
     log(f"launches in the stress count: fold {fold_got}, LSM {lsm_got}")
     log(f"launches in the postsolid builds: {graph_got}")
     log(f"launches in the MPHF builds and queries: {mphf_got}")
@@ -3602,6 +3817,7 @@ def main() -> int:
     log(f"launches in phase 12: {simplify_got}")
     log(f"launches in phase 14: {mesh_got}")
     log(f"launches in phase 15: {tools_got}")
+    log(f"launches in phase 16: {examples_got}")
     err_s = phase_shapes(torch, S, R, tally.shapes)
     err["rank_rows"] = max(err["rank_rows"], err_g)
     for name in err:
