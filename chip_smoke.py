@@ -9,8 +9,11 @@ bank once on the fold path and once on the LSM chain without the profiler
 (host clock, the run's stopwatches, the peak of device memory), then
 once on each under ``torch.profiler``, and prints per path the wall time,
 the device time summed over kernels and copies, the busy share (device
-time over wall time) and the kernels by device time; the full lists go to
-``DIR/profile_<path>.txt`` (default ``chiprun_out``).
+time over wall time), the torch ops, kernel launches and copies enqueued,
+the extraction's and the reduce's kernels' device time and the kernels by
+device time; the full lists go to ``DIR/profile_<path>.txt`` (default
+``chiprun_out``). It needs only ``count_kmers`` and the CUDA sources, so
+the same script also profiles an older checkout of the package.
 
     python3 chip_smoke.py --mesh-sizing [--reads 6000000]
 
@@ -66,6 +69,18 @@ numpy ground truth computed here:
      outputs held against each other, and the whole sort of 2 and of 4
      planes x 2^25 rows beside torch.sort; and the fetch of a 30M-row
      table, whole, packed and streamed;
+     extract_planes (ops/kmer_ops) bit for bit against its plain version
+     at k = 15, 16, 31, 32, 63 and 95, L = 150 and 151, dense and masked
+     validity, one pass and each of three, reads shorter than k, and at
+     the stress superbatch (147,456 reads x 256, 2^25 rows); run_reduce
+     (ops/sortops) against count_sorted_planes[_multi]_plain for 1 to 9
+     planes, no weights, one and three weight rows up to 2^30 (the counts
+     wrap), capacities above and below the run count, 12,293 and 2^20
+     rows with a 5000-row run across its 4096-row blocks, no valid row and
+     one row, each call one launch; their times at the stress superbatch
+     (1 and 3 passes) and at the fold's (2 x 2^26 rows, weighted) and the
+     LSM chain's (2 x 2^25) reduce beside the plain versions and, for the
+     reduce, torch.unique_consecutive;
   2. bench bank: 200k x 150 bp reads of a 1 Mbp genome (seed 7, the
      generator of bench.make_dataset), k=31, abundance-min 3;
   3. multi-limb: 20k reads of the same generator, k=63 (W=4);
@@ -73,7 +88,9 @@ numpy ground truth computed here:
      generator of tools_dev/stress_r3.py:gen, ~0.9 GB of FASTA in a
      temporary directory), k=31, abundance-min 3: 29,999,950 solid k-mers;
   5. main-path shapes: every kernel bit for bit against its plain version
-     at each argument shape the counted phases launched it with (run last);
+     at each argument shape the counted phases launched it with (run last;
+     the extraction on random reads, the reduce on sorted rows a tenth
+     invalid);
   6. LSM merge chain (``carry_accumulator=False``): the bench bank in one
      pass and in three (bank cache on, and ``bank_cache_bytes=0``) and the
      stress bank in one pass, each solid table equal to the fold phase's;
@@ -212,7 +229,9 @@ numpy ground truth computed here:
 
 Phases 2-4 and 6-16 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
-have launched in each (the three limb-sort kernels in the counts;
+have launched in each (the three limb-sort kernels, extract_planes and
+run_reduce in the counts of phases 2-4, 6, 7, 13b and 14a and in each
+rank's bench count of 14b;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
 limb-sort kernels in each part of phase 9 and in each ``Graph.create`` of
 phase 12; rank_rows in each part of phases 10 and 11, the MPHF's fallback
@@ -256,14 +275,20 @@ KERNEL_SOURCE = {
     "merge_tiles": "gatb_core_tpu_torch/ops/csrc/limb_sort.cu",
     "bitonic_u64": "gatb_core_tpu_torch/ops/csrc/limb_sort.cu",
     "rank_rows": "gatb_core_tpu_torch/ops/csrc/rank_search.cu",
+    "extract_planes": "gatb_core_tpu_torch/ops/csrc/kmer_extract.cu",
+    "run_reduce": "gatb_core_tpu_torch/ops/csrc/run_reduce.cu",
 }
-# rank_rows has no Pallas original: it replaces the jnp sort-join
+# rank_rows, extract_planes and run_reduce have no Pallas original: they
+# replace the jnp sort-join, the jnp extraction (with the pass filter and
+# the sentinel encoding) and the jnp distinct reduce
 REPLACES = {
     "tile_sort": "gatb_core_tpu/ops/pallas_sort.py:150",
     "merge_partition": "gatb_core_tpu/ops/pallas_sort.py:204",
     "merge_tiles": "gatb_core_tpu/ops/pallas_sort.py:181",
     "bitonic_u64": "gatb_core_tpu/ops/pallas_sort.py:45",
     "rank_rows": "gatb_core_tpu/ops/sortops.py:839",
+    "extract_planes": "gatb_core_tpu/ops/kmer_ops.py:141",
+    "run_reduce": "gatb_core_tpu/ops/sortops.py:559",
 }
 LIMB_KERNELS = ("tile_sort", "merge_partition", "merge_tiles",
                 "bitonic_u64")
@@ -271,6 +296,8 @@ LIMB_KERNELS = ("tile_sort", "merge_partition", "merge_tiles",
 SINGLE_S: dict = {}
 SORT_KERNELS = ("tile_sort", "merge_partition", "merge_tiles")
 GRAPH_KERNELS = SORT_KERNELS + ("rank_rows",)
+# a count: the extraction, the sort kernels and the distinct reduce
+COUNT_KERNELS = SORT_KERNELS + ("extract_planes", "run_reduce")
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
 # the float32 rate outside the tensor cores as the nearest published rate
 # for 32-bit compare work
@@ -502,24 +529,28 @@ def neighbors_py(v: int, k: int) -> list:
 
 
 def build_all():
-    """nvcc (one per CUDA source) and g++ (native FASTA batcher), all
-    started together."""
+    """nvcc (one per CUDA source under ops/csrc) and g++ (native FASTA
+    batcher), all started together."""
+    import glob
     from concurrent.futures import ThreadPoolExecutor
 
     from gatb_core_tpu_torch import native
     from gatb_core_tpu_torch.ops import _build
 
+    stems = sorted(os.path.basename(p)[:-3] for p in
+                   glob.glob(os.path.join(_build.CSRC_DIR, "*.cu")))
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(_build.load_cuda, "limb_sort"),
-                pool.submit(_build.load_cuda, "rank_search"),
-                pool.submit(native.available)]
-        native_ok = [job.result() for job in jobs][2]
-    log(f"build: {time.time() - t0:.2f} s wall "
-        f"(nvcc limb_sort.cu {_build.build_seconds.get('limb_sort', 0):.2f}"
-        f" s, nvcc rank_search.cu "
-        f"{_build.build_seconds.get('rank_search', 0):.2f}"
-        f" s, g++ fastx.cpp {_build.build_seconds.get('fastx', 0):.2f} s)"
+    with ThreadPoolExecutor(len(stems) + 1) as pool:
+        jobs = [pool.submit(_build.load_cuda, stem) for stem in stems]
+        native_job = pool.submit(native.available)
+        for job in jobs:
+            job.result()
+        native_ok = native_job.result()
+    log(f"build: {time.time() - t0:.2f} s wall ("
+        + ", ".join(f"nvcc {stem}.cu "
+                    f"{_build.build_seconds.get(stem, 0):.2f} s"
+                    for stem in stems)
+        + f", g++ fastx.cpp {_build.build_seconds.get('fastx', 0):.2f} s)"
         f"; parser: {'native' if native_ok else 'python'}"
         + ("" if native_ok else f" ({native.unavailable_reason})"))
 
@@ -881,6 +912,236 @@ def phase_timing(torch, S, card: str):
     return times, errs
 
 
+# ---------------------------------------------------------------------------
+# the count's extraction and distinct reduce (extract_planes, run_reduce)
+# ---------------------------------------------------------------------------
+
+# the stress count's superbatch: 144 batches of 1024 reads padded to 256
+# bases (CountConfig.batch_len), k=31, 2^25 rows; 150 bp reads
+STRESS_READS, STRESS_L, STRESS_LEN = 144 * 1024, 256, 150
+
+
+def packed_batch(torch, r: int, L: int, k: int, gen, dense: bool,
+                 short: bool = True):
+    """r random reads packed on the card: (words (r, ceil(L/16)) int32,
+    vmask (r, ceil(L/32)) int32 with 2% of the bases invalid, or None,
+    lengths (r,) int32: up to L, a fifth under k with ``short``)."""
+    from gatb_core_tpu_torch.ops.kmer_ops import pack_valid
+
+    words = torch.randint(-2**31, 2**31 - 1, (r, (L + 15) // 16),
+                          dtype=torch.int32, device="cuda", generator=gen)
+    lengths = torch.randint(max(0, L - 40), L + 1, (r,), dtype=torch.int32,
+                            device="cuda", generator=gen)
+    if short:
+        lengths[1::5] = torch.randint(0, k, (len(lengths[1::5]),),
+                                      dtype=torch.int32, device="cuda",
+                                      generator=gen)
+    vmask = None
+    if not dense:
+        bits = torch.rand((r, L), device="cuda", generator=gen) > 0.02
+        vmask = pack_valid(bits).to(torch.int32)
+    return words, vmask, lengths
+
+
+def extract_err(K, words, vmask, lengths, k, L, cap, nb_passes, pass_i,
+                m=10):
+    """max |kernel - plain| over the four outputs of one extract_planes
+    call; the call must be one launch."""
+    before = K.launches["extract_planes"]
+    got = K.extract_planes(words, vmask, lengths, k, L, cap, m=m,
+                           nb_passes=nb_passes, pass_i=pass_i)
+    check(K.launches["extract_planes"] == before + 1,
+          "extract_planes: not one launch a call")
+    ref = K.extract_planes_plain(words, vmask, lengths, k, L, cap, m=m,
+                                 nb_passes=nb_passes, pass_i=pass_i)
+    check(int(got[2]) == int(got[1].sum()), "extract_planes: n_keep")
+    return max(max_abs_err(a, b) for a, b in zip(got, ref))
+
+
+def run_planes(torch, P: int, n: int, n_valid: int, gen, dup=0.55):
+    """(P, n) int32 planes sorted as unsigned rows, about ``dup`` of the
+    valid rows equal to the row before, one run of 5000 rows across the
+    reduce's 4096-row blocks where n_valid allows, every plane used (plane
+    j holds the row's value >> 3 (P - 1 - j), the high bit of plane 0 set
+    on the upper half), all-ones past n_valid; and inv."""
+    planes = torch.full((P, n), -1, dtype=torch.int32, device="cuda")
+    if n_valid:
+        inc = (torch.rand((n_valid,), device="cuda", generator=gen)
+               >= dup).long()
+        if n_valid > 10000:
+            inc[1000:6000] = 0
+        v = torch.cumsum(inc, 0)
+        for j in range(P):
+            planes[j, :n_valid] = (v >> (3 * (P - 1 - j))).to(torch.int32)
+        planes[0, :n_valid] |= torch.where(
+            v >= int(v[-1]) // 2, -2**31, 0).to(torch.int32)
+    return planes, torch.arange(n, device="cuda") >= n_valid
+
+
+def reduce_err(T, planes, inv, weights, cap_out: int) -> int:
+    """max |kernel - plain| over one distinct reduce (weights None, (N,)
+    or (B, N)); the call must be one run_reduce launch."""
+    before = T.launches["run_reduce"]
+    if weights is not None and weights.dim() == 2:
+        got = T.count_sorted_planes_multi(planes, inv, weights, cap_out)
+        ref = T.count_sorted_planes_multi_plain(planes, inv, weights,
+                                                cap_out)
+    else:
+        got = T.count_sorted_planes(planes, inv, weights, cap_out)
+        ref = T.count_sorted_planes_plain(planes, inv, weights, cap_out)
+    check(T.launches["run_reduce"] == before + 1,
+          "run_reduce: not one launch a call")
+    check(all(a.shape == b.shape and a.dtype == b.dtype
+              for a, b in zip(got, ref)), "run_reduce: output shapes")
+    return max(max_abs_err(a, b) for a, b in zip(got, ref))
+
+
+def reduce_weights(torch, b: int, n: int, gen):
+    """None (b = 0), (n,) or (b, n) int32 weights up to 2^30 (the counts
+    wrap mod 2^32 in both versions)."""
+    if b == 0:
+        return None
+    w = torch.randint(1, 2**30, (b, n), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    return w[0] if b == 1 else w
+
+
+def phase_count_kernels(torch) -> dict:
+    """extract_planes and run_reduce against their plain versions on the
+    card, bit for bit. Returns max |err| per kernel."""
+    from gatb_core_tpu_torch.ops import kmer_ops as K
+    from gatb_core_tpu_torch.ops import sortops as T
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(515)
+    err = {"extract_planes": 0, "run_reduce": 0}
+    n_checks = 0
+    # extraction: k at and off the limb boundaries, dense and masked, one
+    # and three passes (every pass), reads shorter than k, L off a multiple
+    # of 16; and the stress superbatch
+    for k in (15, 16, 31, 32, 63, 95):
+        for L in (150, 151):
+            for dense in (True, False):
+                words, vmask, lengths = packed_batch(torch, 4096, L, k, gen,
+                                                     dense)
+                cap = 1 << (4096 * (L - k + 1) - 1).bit_length()
+                for nb_passes, pass_i in ((1, 0), (3, 0), (3, 1), (3, 2)):
+                    err["extract_planes"] = max(
+                        err["extract_planes"],
+                        extract_err(K, words, vmask, lengths, k, L, cap,
+                                    nb_passes, pass_i))
+                    n_checks += 1
+    words, vmask, lengths = packed_batch(torch, STRESS_READS, STRESS_L, 31,
+                                         gen, True)
+    err["extract_planes"] = max(err["extract_planes"], extract_err(
+        K, words, None, lengths, 31, STRESS_L, 1 << 25, 1, 0))
+    del words, vmask, lengths
+    # reduce: 1 to 9 planes, no weights, one and three weight rows, the
+    # capacity above and below the run count, rows off the block size, no
+    # valid row, one row
+    for P in range(1, 10):
+        for n in (3 * 4096 + 5, 1 << 20):
+            planes, inv = run_planes(torch, P, n, n - 7, gen)
+            for b in (0, 1, 3):
+                w = reduce_weights(torch, b, n, gen)
+                for cap_out in (n, n // 3):
+                    err["run_reduce"] = max(err["run_reduce"], reduce_err(
+                        T, planes, inv, w, cap_out))
+                    n_checks += 1
+    for P, n, n_valid in ((2, 4096, 0), (3, 5000, 0), (2, 1, 1), (9, 1, 0)):
+        planes, inv = run_planes(torch, P, n, n_valid, gen)
+        for b in (0, 1, 3):
+            err["run_reduce"] = max(err["run_reduce"], reduce_err(
+                T, planes, inv, reduce_weights(torch, b, n, gen), n))
+            n_checks += 1
+    torch.cuda.synchronize()
+    log(f"phase 1 count kernels: {n_checks} inputs, max |kernel - plain| "
+        f"{err}")
+    check(all(v == 0 for v in err.values()),
+          "a count kernel disagrees with its plain version")
+    return err
+
+
+def phase_count_timing(torch, card: str):
+    """extract_planes at the stress superbatch (147,456 reads x 256, k=31,
+    dense, 150 bp, 2^25 rows) and run_reduce at the fold's reduce (2
+    planes x 2^26 rows, weighted, cap_out 2^25, ~30M runs) and at the LSM
+    chain's (2 x 2^25, unweighted), each beside its plain version; the
+    library call for the reduce is torch.unique_consecutive of the valid
+    rows (dim=1, return_counts; unweighted); no PyTorch call extracts
+    k-mers. Bounds: the bytes read once and written once (extraction: the
+    words and lengths, 4 W + 1 bytes a row; reduce: 4 P + 4 B + 1 bytes a
+    row, 4 P + 4 B a run). Returns ({name: {ms, plain_ms, library_ms,
+    bound_ms, bound_by}}, {name: max |kernel - plain|})."""
+    from gatb_core_tpu_torch.ops import kmer_ops as K
+    from gatb_core_tpu_torch.ops import sortops as T
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    times, errs = {}, {}
+    words, _, lengths = packed_batch(torch, STRESS_READS, STRESS_L, 31, gen,
+                                     True, short=False)
+    lengths.fill_(STRESS_LEN)
+    cap = 1 << 25
+    for nb_passes in (1, 3):
+        ms, got = time_ms(torch, lambda y: K.extract_planes(
+            y, None, lengths, 31, STRESS_L, cap, nb_passes=nb_passes),
+            words, fresh=False)
+        plain_ms, ref = time_ms(torch, lambda y: K.extract_planes_plain(
+            y, None, lengths, 31, STRESS_L, cap, nb_passes=nb_passes),
+            words, fresh=False)
+        e = max(max_abs_err(a, b) for a, b in zip(got, ref))
+        b_ms, b_by = bound(words.numel() * 4 + lengths.numel() * 4
+                           + cap * (2 * 4 + 1), 0)
+        log(f"time extract_planes, {nb_passes} pass(es): {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms by "
+            f"{b_by} ({STRESS_READS} reads x {STRESS_L}, k=31, dense, "
+            f"{STRESS_LEN} bp, 2^25 rows; kept {int(got[2])}; {card}); "
+            f"max |kernel - plain| {e}")
+        errs["extract_planes"] = max(errs.get("extract_planes", 0), e)
+        if nb_passes == 1:
+            times["extract_planes"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by}
+        del got, ref
+    del words, lengths
+    for label, n, weighted, cap_out in (("fold", 1 << 26, True, 1 << 25),
+                                        ("LSM", 1 << 25, False, 1 << 25)):
+        n_valid = n - n // 10
+        planes, inv = run_planes(torch, 2, n, n_valid, gen, dup=0.5)
+        w = reduce_weights(torch, int(weighted), n, gen)
+        ms, got = time_ms(torch, lambda y: T.count_sorted_planes(
+            y, inv, w, cap_out), planes, fresh=False)
+        plain_ms, ref = time_ms(torch, lambda y: T.count_sorted_planes_plain(
+            y, inv, w, cap_out), planes, fresh=False)
+        live = planes[:, :n_valid].contiguous()
+        lib_ms, (uq, cnt) = time_ms(torch, lambda y: torch.unique_consecutive(
+            y, dim=1, return_counts=True), live, fresh=False)
+        e = max(max_abs_err(a, b) for a, b in zip(got, ref))
+        runs = int(got[2])
+        if not weighted:
+            e = max(e, int(uq.shape[1] != runs),
+                    max_abs_err(cnt.to(torch.int32), got[1][:runs]))
+        b_ms, b_by = bound(n * (2 * 4 + 4 * weighted + 1)
+                           + runs * (2 * 4 + 4), 0)
+        log(f"time run_reduce, {label}: {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, library (torch.unique_consecutive, unweighted) "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} (2 planes x "
+            f"{n} rows, {n_valid} valid, {runs} runs, "
+            f"{'weighted' if weighted else 'unweighted'}, cap_out {cap_out}; "
+            f"{card}); max |kernel - plain| {e}")
+        errs["run_reduce"] = max(errs.get("run_reduce", 0), e)
+        if label == "fold":
+            times["run_reduce"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+        del planes, inv, w, got, ref, live, uq, cnt
+    torch.cuda.empty_cache()
+    check(all(v == 0 for v in errs.values()),
+          "timing: a count kernel disagrees with its plain version")
+    return times, errs
+
+
 def sorted_table(torch, S, w: int, n: int, cap: int, gen):
     """A sorted table of distinct random rows on the card: ((cap, w) int32
     rows, live), the rows past ``live`` all-ones. ``live`` is n less the
@@ -1216,7 +1477,32 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
                                                tile_log2=log2(tile))), ref))
             n_checks += 1
             del x, ref
+    # extract_planes: random reads of the launch's shape, the last pass
+    _, K, T = wrapper_modules()
+    for k, L, r, nw, nv, cap, m, nb_passes in sorted(
+            shapes["extract_planes"]):
+        words, vmask, lengths = packed_batch(torch, r, L, k, gen, nv == 0)
+        words = torch.cat([words, torch.randint(
+            -2**31, 2**31 - 1, (r, nw - words.shape[1]), dtype=torch.int32,
+            device="cuda", generator=gen)], dim=1)
+        if vmask is not None and nv > vmask.shape[1]:
+            vmask = torch.cat([vmask, torch.full(
+                (r, nv - vmask.shape[1]), -1, dtype=torch.int32,
+                device="cuda")], dim=1)
+        err["extract_planes"] = max(err["extract_planes"], extract_err(
+            K, words, vmask, lengths, k, L, cap, nb_passes, nb_passes - 1,
+            m or 10))
+        n_checks += 1
+        del words, vmask, lengths
+    # run_reduce: sorted rows of the launch's shape, a tenth invalid
+    for P, n, b, cap_out in sorted(shapes["run_reduce"]):
+        planes, inv = run_planes(torch, P, n, n - n // 10, gen)
+        err["run_reduce"] = max(err["run_reduce"], reduce_err(
+            T, planes, inv, reduce_weights(torch, b, n, gen), cap_out))
+        n_checks += 1
+        del planes, inv
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     log(f"phase 5 main-path shapes: {n_checks} checks over "
         f"{ {k: len(v) for k, v in shapes.items()} } shapes, "
         f"max |kernel - plain| {err}")
@@ -1225,19 +1511,42 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
     return err
 
 
+def wrapper_modules():
+    """The modules whose wrappers count kernel launches, bar limb_sort:
+    the rank search, the extraction and the distinct reduce."""
+    from gatb_core_tpu_torch.ops import kmer_ops as K
+    from gatb_core_tpu_torch.ops import rank_search as R
+    from gatb_core_tpu_torch.ops import sortops as T
+
+    return R, K, T
+
+
+def launch_counts(S) -> tuple:
+    """(launches, launch shapes) of every wrapper since its last reset."""
+    mods = (S,) + wrapper_modules()
+    got, shapes = {}, {}
+    for mod in mods:
+        got.update(mod.launches)
+        shapes.update({k: set(v) for k, v in mod.launch_shapes.items()})
+    return got, shapes
+
+
+def reset_counts(S) -> None:
+    for mod in (S,) + wrapper_modules():
+        mod.reset_launches()
+
+
 def counted(S, name: str, fn, path=SORT_KERNELS):
-    """Run fn with the launch counters (the limb-sort wrappers' and the
-    rank search's) and the rank index's build counter at 0; require every
-    kernel of its path to have launched. Returns fn's result, the counts
-    and the launch shapes."""
+    """Run fn with the launch counters (the limb-sort wrappers', the rank
+    search's, the extraction's and the reduce's) and the rank index's
+    build counter at 0; require every kernel of its path to have launched.
+    Returns fn's result, the counts and the launch shapes."""
     from gatb_core_tpu_torch.ops import rank_search as R
 
-    S.reset_launches()
-    R.reset_launches()
+    reset_counts(S)
     out = fn()
-    got = {**S.launches, **R.launches, **R.builds}
-    shapes = {k: set(v) for k, v in
-              {**S.launch_shapes, **R.launch_shapes}.items()}
+    got, shapes = launch_counts(S)
+    got.update(R.builds)
     log(f"{name} launches: {got}")
     check(all(got[k] > 0 for k in path),
           f"{name}: a kernel of the path was not launched")
@@ -1274,7 +1583,7 @@ def phase_bench(tally, tmp: str, S, count_kmers):
         write_reads(f, reads, 0)
     t0 = time.time()
     res, _ = tally.counted(S, "phase 2 bench", lambda: count_kmers(
-        path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 22))
+        path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 22), path=COUNT_KERNELS)
     wall = time.time() - t0
     SINGLE_S["bench count"] = wall
     info = res.info
@@ -1301,7 +1610,7 @@ def phase_k63(tally, tmp: str, S, count_kmers):
         write_reads(f, reads, 0)
     t0 = time.time()
     res, _ = tally.counted(S, "phase 3 k=63", lambda: count_kmers(
-        path, kmer_size=63, abundance_min=1))
+        path, kmer_size=63, abundance_min=1), path=COUNT_KERNELS)
     wall = time.time() - t0
     SINGLE_S["k=63 count"] = wall
     rows, cnts = truth_k63(reads)
@@ -1324,7 +1633,7 @@ def stress_count(tally, S, count_kmers, path: str, name: str, card: str,
     t0 = time.time()
     res, got = tally.counted(S, name, lambda: count_kmers(
         path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 25,
-        nb_passes=1, **kw))
+        nb_passes=1, **kw), path=COUNT_KERNELS)
     wall = time.time() - t0
     SINGLE_S[name] = wall
     log(f"{name}: peak device memory allocated during the count "
@@ -1374,7 +1683,7 @@ def phase_lsm(tally, S, count_kmers, bench_path: str, bench_fold,
         res, _ = tally.counted(
             S, f"phase 6 LSM bench, {label}", lambda: count_kmers(
                 bench_path, kmer_size=31, abundance_min=3,
-                superbatch_rows=1 << 22, carry_accumulator=False, **kw))
+                superbatch_rows=1 << 22, carry_accumulator=False, **kw), path=COUNT_KERNELS)
         log(f"phase 6 LSM bench, {label}: count {time.time() - t0:.3f} s, "
             f"distinct {res.info['kmers_nb_distinct']}, solid "
             f"{res.info['kmers_nb_solid']}, passes "
@@ -1415,7 +1724,7 @@ def phase_multibank(tally, tmp: str, S, reads: np.ndarray):
         t0 = time.time()
         res, _ = tally.counted(
             S, f"phase 6 multibank, {kind}", lambda: count_kmers_multibank(
-                paths, kmer_size=31, abundance_min=3, solidity_kind=kind))
+                paths, kmer_size=31, abundance_min=3, solidity_kind=kind), path=COUNT_KERNELS)
         log(f"phase 6 multibank, {kind}: count {time.time() - t0:.3f} s, "
             f"distinct {res.info['kmers_nb_distinct']}, solid "
             f"{res.info['kmers_nb_solid']}")
@@ -1444,7 +1753,7 @@ def phase_dbgh5(tally, tmp: str, S, bench_path: str, truth):
     graph, _ = tally.counted(S, "phase 7 dbgh5", lambda: Graph.create(
         bank=bench_path, kmer_size=31, abundance_min=3, output=None,
         bloom_kind="none", debloom_kind="none", mphf_kind="none",
-        build_branching=False, superbatch_rows=1 << 22))
+        build_branching=False, superbatch_rows=1 << 22), path=COUNT_KERNELS)
     t_graph = time.time() - t0
     info = graph.get_info()
     check(graph.nb_nodes == int(solid.sum()) == info["nb_solid_kmers"]
@@ -2906,7 +3215,7 @@ def phase_linear_counter(tally, S, torch, reads, bench_path: str, tmp: str,
         LinearCounter, estimate_distinct_kmers)
 
     res, _ = tally.counted(S, "phase 13b count", lambda: count_kmers(
-        bench_path, kmer_size=31, abundance_min=1))
+        bench_path, kmer_size=31, abundance_min=1), path=COUNT_KERNELS)
     exact = len(res.solid_kmers)
     check(exact == 999_959, "phase 13b: distinct k-mers of the bench bank")
     lc = LinearCounter(200_000 * 121, device="cuda")
@@ -3119,7 +3428,7 @@ def phase_leon_and_merges(tally, S, torch, reads, bench_path: str, tmp: str,
 # ---------------------------------------------------------------------------
 
 MESH_RANK_KERNELS = ("tile_sort", "merge_partition", "merge_tiles",
-                     "rank_rows")
+                     "rank_rows", "extract_planes", "run_reduce")
 
 
 def table_sha(res) -> str:
@@ -3161,7 +3470,7 @@ def phase_mesh_count(tally, S, mesh, stress_path: str, stress_fold,
         S, "phase 14a stress count (mesh, 1 rank, NCCL)",
         lambda: count_kmers_distributed(
             stress_path, mesh, kmer_size=31, abundance_min=3,
-            superbatch_rows=1 << 25, distinct_ratio_hint=0.05))
+            superbatch_rows=1 << 25, distinct_ratio_hint=0.05), path=COUNT_KERNELS)
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
     replays = superbatch.retries["superbatch"] - before
@@ -3221,23 +3530,21 @@ def _rank_counts(mesh, fn):
     import torch
 
     from gatb_core_tpu_torch.ops import limb_sort as S
-    from gatb_core_tpu_torch.ops import rank_search as R
 
     def sync():
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
 
-    S.reset_launches()
-    R.reset_launches()
+    reset_counts(S)
     sync()
     t0 = time.time()
     out = fn()
     sync()
     secs = time.time() - t0
-    return out, secs, {k: v for k, v in {**S.launches, **R.launches}.items()
+    got, shapes = launch_counts(S)
+    return out, secs, {k: v for k, v in got.items()
                        if k in MESH_RANK_KERNELS}, \
-        {k: set(v) for k, v in {**S.launch_shapes, **R.launch_shapes}.items()
-         if k in MESH_RANK_KERNELS}
+        {k: v for k, v in shapes.items() if k in MESH_RANK_KERNELS}
 
 
 def mesh_rank_count(mesh, path: str, k: int, kw: dict) -> dict:
@@ -3348,7 +3655,9 @@ def phase_mesh_ranks(tally, tmp: str, bench_path: str, bench_fold,
 
         bench, bench_s = run("bench count", mesh_rank_count, bench_path, 31,
                              dict(abundance_min=3, nb_passes=2,
-                                  capacity_factor=0.1))
+                                  capacity_factor=0.1),
+                             need=("tile_sort", "extract_planes",
+                                   "run_reduce"))
         check(bench["sha"] == table_sha(bench_fold)
               and bench["info"]["kmers_nb_distinct"] == 999_959,
               "14b: the bench count differs from phase 2's")
@@ -3599,9 +3908,42 @@ def device_events(torch, prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
+# device kernels of the extraction and of the distinct reduce, by name:
+# the hand kernels, and the torch ops that did the same work before them
+# (the funnel shifts, revcomp, compare and where of the extraction; the
+# reduce's cumsums and index_copy_) cannot be told apart from other torch
+# ops, so a tree without the kernels reads "not measured"
+COUNT_KERNEL_NAMES = {"extract_planes": ("extract_planes_kernel",),
+                      "run_reduce": ("run_partials_kernel", "run_scan_kernel",
+                                     "run_scatter_kernel")}
+
+
+def enqueued(torch, prof):
+    """(top-level torch ops, device kernels, device copies and fills) of a
+    profile: aten ops called from outside any other aten op (what a
+    dispatch mode sees), and the device events by kind."""
+    ops = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU \
+                or not e.name.startswith("aten::"):
+            continue
+        parent = e.cpu_parent
+        if parent is None or not parent.name.startswith("aten::"):
+            ops += 1
+    kernels = copies = 0
+    for key, _, calls in device_events(torch, prof):
+        if key.startswith(("Memcpy", "Memset")):
+            copies += calls
+        else:
+            kernels += calls
+    return ops, kernels, copies
+
+
 def profile_main(torch, count_kmers, n_reads: int, out_dir: str) -> int:
     """The ``--profile`` mode: where the stress count's time goes, fold
-    path and LSM merge chain side by side."""
+    path and LSM merge chain side by side. It needs only the package's
+    ``count_kmers`` and its CUDA sources, so it also profiles a checkout
+    that predates the extraction and reduce kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     def count(path, **kw):
@@ -3642,9 +3984,18 @@ def profile_main(torch, count_kmers, n_reads: int, out_dir: str) -> int:
                 torch.cuda.synchronize()
             rows = device_events(torch, prof)
             dev_s = sum(r[1] for r in rows) / 1e6
+            ops, kernels, copies = enqueued(torch, prof)
+            stages = {}
+            for stage, names in COUNT_KERNEL_NAMES.items():
+                hit = [r for r in rows if any(x in r[0] for x in names)]
+                stages[stage] = "not measured" if not hit else (
+                    f"{sum(r[1] for r in hit) / 1e3:.3f} ms in "
+                    f"{sum(r[2] for r in hit)} launches")
             log(f"{name} under the profiler: count {wall:.3f} s wall, "
                 f"device {dev_s:.3f} s, busy share {dev_s / wall:.3f}; "
-                f"{card}")
+                f"enqueued {ops} torch ops, {kernels} kernel launches, "
+                f"{copies} copies and fills; extraction {stages['extract_planes']}"
+                f", reduce {stages['run_reduce']}; {card}")
             for key, us, calls in rows[:14]:
                 log(f"  {us / 1e3:10.1f} ms  {calls:7d} x  {key[:90]}")
             with open(os.path.join(out_dir, f"profile_{name}.txt"),
@@ -3748,9 +4099,13 @@ def main() -> int:
     build_all()
     err = phase_kernels(torch, S)
     err["rank_rows"] = phase_rank_kernel(torch, S, R)
+    err.update(phase_count_kernels(torch))
     times, err_t = phase_timing(torch, S, card)
     times["rank_rows"], err_t["rank_rows"] = phase_rank_timing(torch, S, R,
                                                                card)
+    count_times, count_errs = phase_count_timing(torch, card)
+    times.update(count_times)
+    err_t.update(count_errs)
     phase_fetch(torch, card)
     tally = Tally()
     with tempfile.TemporaryDirectory(prefix="gatb_smoke_") as tmp, \

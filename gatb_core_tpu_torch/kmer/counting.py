@@ -51,8 +51,8 @@ from ..bank.fasta import open_bank
 from ..convert import kmers_to_numpy
 from ..misc.algorithm import Algorithm
 from ..ops.bitpack import ascii_to_codes_np
-from ..ops.kmer_ops import (extract_kmers, extract_kmers_packed,
-                            kmers_to_py, nb_limbs)
+from ..ops.kmer_ops import (extract_kmers, extract_planes, kmers_to_py,
+                            nb_limbs, pack_valid, pack_words)
 from ..ops.limb_sort import merge_sorted_runs, sort_u32_limbs
 from ..ops.sortops import (SENTINEL, CountTable, _next_pow2, count_batch,
                            count_planes,
@@ -62,9 +62,6 @@ from ..ops.sortops import (SENTINEL, CountTable, _next_pow2, count_batch,
 from .histogram import Histogram
 
 MAX_INT32 = 2**31 - 1
-# windows extracted per step inside a superbatch: bounds the extraction
-# temporaries (a few hundred MB), as lax.map over batches does in JAX
-_EXTRACT_ROWS = 1 << 22
 I32 = torch.int32
 I64 = torch.int64
 
@@ -284,62 +281,42 @@ def _native_fastx_paths(bank) -> list[str] | None:
 def _extract_superbatch(codes, valid, lengths, pass_i, *, k: int, m: int,
                         nb_passes: int, packed: bool, L: int | None,
                         bank_ids=None):
-    """Extraction of one superbatch, in steps of at most _EXTRACT_ROWS
-    windows (bounding the temporaries), straight into the planes of the
-    sort: (w, next_pow2(rows)) int32, all-ones sentinels on invalid
-    windows, on windows the pass filter drops and on the padding (a
-    canonical k-mer is never all-ones, ops/sortops._encode_invalid).
+    """Extraction of one superbatch straight into the planes of the sort:
+    (w, next_pow2(rows)) int32, all-ones sentinels on invalid windows, on
+    windows the pass filter drops and on the padding (a canonical k-mer is
+    never all-ones, ops/sortops._encode_invalid). One ``extract_planes``
+    over all the superbatch's reads: a single kernel launch on the card,
+    its plain version in steps on the CPU.
 
-    codes/valid: (G, B, L) bytes/bools, or with packed=True the packed
-    words / validity bitmasks with L the unpacked length (valid may then
-    be None: dense mode); lengths: (G, B); bank_ids: optional (G, B) bank
-    of each read. Returns (planes, keep (cap,) bool rows that count,
-    n_keep () int32, n_valid () int64 valid windows before the pass
-    filter, n_inside () int64, bank plane (cap,) int32 or None)."""
-    w = nb_limbs(k)
+    codes/valid: (G, B, L) bytes/bools (packed here with pack_words /
+    pack_valid), or with packed=True the packed words / validity bitmasks
+    with L the unpacked length (valid may then be None: dense mode);
+    lengths: (G, B); bank_ids: optional (G, B) bank of each read. Returns
+    (planes, keep (cap,) bool rows that count, n_keep () int32, n_valid ()
+    int64 valid windows before the pass filter, n_inside () int64, bank
+    plane (cap,) int32 or None)."""
     G, B = lengths.shape
     dev = lengths.device
-    Lw = L if packed else codes.shape[2]
-    P = Lw - k + 1
+    if packed:
+        words = codes.reshape(G * B, -1)
+        vmask = None if valid is None else valid.reshape(G * B, -1)
+    else:
+        L = codes.shape[2]
+        words = pack_words(codes.reshape(G * B, L))
+        vmask = pack_valid(valid.reshape(G * B, L))
+    P = L - k + 1
     rows = G * B * P
     cap = _next_pow2(max(rows, 256))
-    planes = torch.full((w, cap), SENTINEL, dtype=I32, device=dev)
-    keep = torch.zeros((cap,), dtype=torch.bool, device=dev)
-    bank = None if bank_ids is None else torch.zeros((cap,), dtype=I32,
-                                                     device=dev)
-    n_keep = torch.zeros((), dtype=I64, device=dev)
-    n_valid = torch.zeros((), dtype=I64, device=dev)
-    step = max(1, _EXTRACT_ROWS // (B * P))
-    for g0 in range(0, G, step):
-        g1 = min(G, g0 + step)
-        c = codes[g0:g1].reshape(-1, codes.shape[2])
-        v = None if valid is None else valid[g0:g1].reshape(
-            -1, valid.shape[2])
-        ln = lengths[g0:g1].reshape(-1)
-        if packed:
-            kb = extract_kmers_packed(c, v, ln, k, L, m,
-                                      with_minimizers=nb_passes > 1)
-        else:
-            kb = extract_kmers(c, v, ln, k, m,
-                               with_minimizers=nb_passes > 1)
-        pv = kb.valid
-        if nb_passes > 1:
-            # reference pass filter (SortingCountAlgorithm.cpp:806)
-            pv = pv & (kb.minimizer % nb_passes == pass_i)
-        n_valid += kb.valid.sum()
-        n_keep += pv.sum()
-        flat = kb.kmers.reshape(-1, w)
-        enc = torch.where(pv.reshape(-1, 1), flat,
-                          torch.full_like(flat, 0xFFFFFFFF))
-        r0 = g0 * B * P
-        r1 = r0 + flat.shape[0]
-        planes[:, r0:r1] = enc.T.to(I32)
-        keep[r0:r1] = pv.reshape(-1)
-        if bank is not None:
-            bank[r0:r1] = bank_ids[g0:g1].reshape(-1, 1).expand(
-                -1, P).reshape(-1).to(I32)
+    planes, keep, n_keep, n_valid = extract_planes(
+        words, vmask, lengths.reshape(-1), k, L, cap, m=m,
+        nb_passes=nb_passes, pass_i=pass_i)
+    bank = None
+    if bank_ids is not None:
+        bank = torch.zeros((cap,), dtype=I32, device=dev)
+        bank[:rows] = bank_ids.reshape(-1, 1).expand(-1, P).reshape(-1).to(
+            I32)
     n_inside = torch.clamp(lengths.to(I64) - (k - 1), min=0).sum()
-    return planes, keep, n_keep.to(I32), n_valid, n_inside, bank
+    return planes, keep, n_keep, n_valid, n_inside, bank
 
 
 def _batch_count_step(codes, valid, lengths, pass_i, *, k: int, m: int,

@@ -22,10 +22,21 @@ Semantics matched bit-for-bit with gatb-core:
 
 The JAX package splits extraction batches above ``_MAX_EXTRACT_ROWS``
 rows to dodge an XLA:TPU miscompile; that split is not carried over.
+
+``extract_planes`` is the count's extraction as the sort takes it: the
+canonical limbs of every window of a superbatch, the pass filter and the
+all-ones encoding of dropped windows, written into (W, cap) int32 planes.
+For a CUDA tensor it is one launch of the hand-written kernel of
+``csrc/kmer_extract.cu``, counted in ``launches``; for a CPU tensor it runs
+``extract_planes_plain``, the functions above in steps of
+``EXTRACT_ROWS`` windows; any other device raises. Nothing falls back from
+the kernel to the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -34,6 +45,23 @@ import torch
 from .bitpack import M32, as_u32_i64, mmer_allowed, revcomp_u32
 
 I64 = torch.int64
+I32 = torch.int32
+# windows extract_planes_plain extracts per step: bounds its temporaries (a
+# few hundred MB), as lax.map over batches does in JAX
+EXTRACT_ROWS = 1 << 22
+# limbs the extraction kernel takes (k <= 128)
+KERNEL_MAX_LIMBS = 8
+
+# launches of the extraction kernel (CUDA tensors only), and the distinct
+# (k, L, reads, words a read, validity words a read or 0, cap, m, nb_passes)
+# they launched with
+launches = {"extract_planes": 0}
+launch_shapes: dict[str, set] = {"extract_planes": set()}
+
+
+def reset_launches() -> None:
+    launches["extract_planes"] = 0
+    launch_shapes["extract_planes"].clear()
 
 
 def nb_limbs(k: int) -> int:
@@ -313,6 +341,131 @@ def _minimizers(codes: torch.Tensor, k: int, m: int,
         best_r = torch.where(better, r, best_r)
         best_v = torch.where(better, v, best_v)
     return best_v
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library (built at the first launch, never at import)."""
+    from ._build import load_cuda
+
+    lib = load_cuda("kmer_extract")
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.extract_planes.argtypes = [vp, i, vp, i, vp, vp, vp, vp, ll, ll, i,
+                                   i, i, i, i, vp]
+    lib.extract_planes.restype = ctypes.c_int
+    return lib
+
+
+def _as_words(x: torch.Tensor) -> torch.Tensor:
+    """(R, n) uint32 patterns in int32 storage or zero-extended int64 ->
+    contiguous int32 storage."""
+    return x.to(I32).contiguous()
+
+
+def extract_planes(words: torch.Tensor, vmask: torch.Tensor | None,
+                   lengths: torch.Tensor, k: int, L: int, cap: int,
+                   m: int = 10, nb_passes: int = 1, pass_i: int = 0):
+    """The windows of R packed reads as the sort's limb planes.
+
+    words: (R, >= ceil(L/16)) packed words (pack_words layout, int32
+    storage or zero-extended int64); vmask: (R, >= ceil(L/32)) validity
+    bits (pack_valid layout) or None (dense mode: every base inside the
+    read is valid); lengths: (R,). Window p of read r (P = L - k + 1 a
+    read) is row r * P + p of ``cap`` >= R * P rows. Returns (planes (W,
+    cap) int32: the canonical limbs of the kept windows, all-ones on the
+    others and on the rows past R * P; keep (cap,) bool; n_keep () int32
+    kept windows; n_valid () int64 valid windows before the pass filter).
+    With nb_passes > 1 a valid window is kept when its minimizer (the
+    lexicographic one, ``_minimizers`` without ``freq_order``) modulo
+    nb_passes is pass_i (SortingCountAlgorithm.cpp:806).
+
+    For a CUDA tensor: one launch of the kernel (W <= 8, k >= m); for a
+    CPU tensor: ``extract_planes_plain``."""
+    r = words.shape[0]
+    if L < k:
+        raise ValueError(f"padded length {L} < k={k}")
+    if r * (L - k + 1) > cap:
+        raise ValueError(f"extract_planes: {r} reads of {L - k + 1} windows "
+                         f"exceed {cap} rows")
+    if words.device.type == "cpu":
+        return extract_planes_plain(words, vmask, lengths, k, L, cap, m,
+                                    nb_passes, pass_i)
+    if not words.is_cuda:
+        raise ValueError(f"extract_planes: unsupported device {words.device}")
+    w = nb_limbs(k)
+    if w > KERNEL_MAX_LIMBS:
+        raise ValueError(f"extract_planes: k={k} takes {w} limbs, the kernel "
+                         f"at most {KERNEL_MAX_LIMBS}")
+    if nb_passes > 1 and not 2 <= m <= min(16, k):
+        raise ValueError(f"extract_planes: minimizer size {m} outside "
+                         f"2..min(16, k={k})")
+    if cap >= 1 << 31:
+        raise ValueError("extract_planes: rows are counted in int32")
+    if words.shape[1] < (L + 15) // 16 or (
+            vmask is not None and vmask.shape[1] < (L + 31) // 32):
+        raise ValueError("extract_planes: fewer words than L bases take")
+    dev = words.device
+    words = _as_words(words)
+    vmask = None if vmask is None else _as_words(vmask)
+    lengths = lengths.to(I32).contiguous()
+    if lengths.shape != (r,) or (vmask is not None and vmask.shape[0] != r):
+        raise ValueError("extract_planes: words, vmask and lengths differ "
+                         "in reads")
+    planes = torch.empty((w, cap), dtype=I32, device=dev)
+    keep = torch.empty((cap,), dtype=torch.bool, device=dev)
+    counters = torch.zeros((2,), dtype=I64, device=dev)
+    P = L - k + 1
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = _lib().extract_planes(
+            words.data_ptr(), words.shape[1],
+            None if vmask is None else vmask.data_ptr(),
+            0 if vmask is None else vmask.shape[1], lengths.data_ptr(),
+            planes.data_ptr(), keep.data_ptr(), counters.data_ptr(), r * P,
+            cap, P, k, m, nb_passes, pass_i, stream)
+    if rc != 0:
+        raise RuntimeError(f"extract_planes: CUDA launch failed with error "
+                           f"{rc}")
+    launches["extract_planes"] += 1
+    launch_shapes["extract_planes"].add(
+        (k, L, r, words.shape[1], 0 if vmask is None else vmask.shape[1],
+         cap, m if nb_passes > 1 else 0, nb_passes))
+    # n_keep: the low word of the first 64-bit counter (a view, no copy)
+    return planes, keep, counters.view(I32)[0], counters[1]
+
+
+def extract_planes_plain(words: torch.Tensor, vmask: torch.Tensor | None,
+                         lengths: torch.Tensor, k: int, L: int, cap: int,
+                         m: int = 10, nb_passes: int = 1, pass_i: int = 0):
+    """Plain version of ``extract_planes`` on any device, torch ops only:
+    ``extract_kmers_packed``, the pass filter and the all-ones encoding in
+    steps of at most EXTRACT_ROWS windows."""
+    w = nb_limbs(k)
+    r = words.shape[0]
+    P = L - k + 1
+    dev = words.device
+    planes = torch.full((w, cap), -1, dtype=I32, device=dev)
+    keep = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    n_keep = torch.zeros((), dtype=I64, device=dev)
+    n_valid = torch.zeros((), dtype=I64, device=dev)
+    step = max(1, EXTRACT_ROWS // P)
+    for r0 in range(0, r, step):
+        r1 = min(r, r0 + step)
+        kb = extract_kmers_packed(
+            words[r0:r1], None if vmask is None else vmask[r0:r1],
+            lengths[r0:r1], k, L, m, with_minimizers=nb_passes > 1)
+        pv = kb.valid
+        if nb_passes > 1:
+            # reference pass filter (SortingCountAlgorithm.cpp:806)
+            pv = pv & (kb.minimizer % nb_passes == pass_i)
+        n_valid += kb.valid.sum()
+        n_keep += pv.sum()
+        flat = kb.kmers.reshape(-1, w)
+        enc = torch.where(pv.reshape(-1, 1), flat,
+                          torch.full_like(flat, M32))
+        planes[:, r0 * P:r1 * P] = enc.T.to(I32)
+        keep[r0 * P:r1 * P] = pv.reshape(-1)
+    return planes, keep, n_keep.to(I32), n_valid
 
 
 def kmers_to_py(limbs) -> list[int]:

@@ -27,11 +27,17 @@ while live rows, counts and ``n`` are equal.
 
 The JAX reduce avoids gathers and scatters (slow on the TPU) and compacts
 the run-end rows with a sort keyed on the weight cumsum
-(``_compact_ends``/``_compact_ends_blocked``). Here the compaction is a
-prefix sum over the end flags and one scatter of all planes, which gives the
-same table, counts, ``n`` and ``n > cap_out`` flag. The JAX blocked
-compaction (``blocked=True``) and its extra block-overflow flag have no
-counterpart.
+(``_compact_ends``/``_compact_ends_blocked``). Here the distinct reduce
+(``count_sorted_planes`` and ``count_sorted_planes_multi``) is the
+hand-written kernel of ``csrc/run_reduce.cu`` on a CUDA tensor (three
+launches a call, counted once in ``launches["run_reduce"]``): each run end
+finds its column by a prefix count of the ends and writes its row and the
+weight since the end before it. On a CPU tensor the plain versions
+(``count_sorted_planes_plain``, ``count_sorted_planes_multi_plain``) take
+a prefix sum over the end flags and one scatter of all planes. Both give
+the same table, counts, ``n`` and ``n > cap_out`` flag as the JAX
+package. The JAX blocked compaction (``blocked=True``) and its extra
+block-overflow flag have no counterpart.
 
 Results that the JAX package returns as device scalars (``n``, the
 overflow flag) are 0-d tensors on the input's device, so a caller can
@@ -40,6 +46,8 @@ queue further work before it reads them.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -49,6 +57,32 @@ from .limb_sort import as_planes, merge_sorted_runs, sort_u32_limbs
 
 I32 = torch.int32
 SENTINEL = -1                 # all-ones uint32 in int32 storage
+
+# calls of the distinct-reduce kernel (CUDA tensors only; three launches
+# each), and the distinct (planes, rows, weight rows or 0, cap_out) they
+# launched with
+launches = {"run_reduce": 0}
+launch_shapes: dict[str, set] = {"run_reduce": set()}
+
+
+def reset_launches() -> None:
+    launches["run_reduce"] = 0
+    launch_shapes["run_reduce"].clear()
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library (built at the first launch, never at import)."""
+    from ._build import load_cuda
+
+    lib = load_cuda("run_reduce")
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.run_reduce.argtypes = [vp, i, ll, vp, vp, i, ll, vp, ll, vp, vp, vp,
+                               vp, vp]
+    lib.run_reduce.restype = ctypes.c_int
+    lib.run_reduce_tile.argtypes = []
+    lib.run_reduce_tile.restype = ctypes.c_int
+    return lib
 
 
 def _next_pow2(n: int) -> int:
@@ -445,6 +479,56 @@ def _compact_ends(planes: torch.Tensor, cumw: torch.Tensor,
     return out[:, :cap_out].contiguous(), cwe[..., :cap_out]
 
 
+def run_reduce(planes: torch.Tensor, inv: torch.Tensor,
+               weights: torch.Tensor | None, cap_out: int):
+    """The distinct-reduce kernel on CUDA tensors: (P, N) int32 sorted
+    planes, (N,) bool inv (invalid rows at the tail), weights None or (B,
+    N) int32 rows. Returns (out_planes (P, cap_out), counts (B, cap_out)
+    int32, n () int32, overflow () bool); see count_sorted_planes."""
+    planes = as_planes(planes)
+    if not planes.is_cuda:
+        raise ValueError(f"run_reduce: unsupported device {planes.device}")
+    P, n_rows = planes.shape
+    if n_rows < 1:
+        raise ValueError("run_reduce: no rows")
+    if inv.shape != (n_rows,):
+        raise ValueError("run_reduce: inv must be (N,)")
+    if cap_out < 0:
+        raise ValueError("run_reduce: negative cap_out")
+    if inv.device != planes.device or (
+            weights is not None and weights.device != planes.device):
+        raise ValueError("run_reduce: planes, inv and weights on different "
+                         "devices")
+    dev = planes.device
+    inv = inv.to(torch.bool).contiguous()
+    if weights is not None:
+        weights = weights.to(I32).contiguous()
+        if weights.dim() != 2 or weights.shape[1] != n_rows:
+            raise ValueError("run_reduce: weights must be (B, N)")
+    b = 1 if weights is None else weights.shape[0]
+    lib = _lib()
+    tile = lib.run_reduce_tile()
+    aux = torch.empty((1 + (2 + b) * -(-n_rows // tile),), dtype=I32,
+                      device=dev)
+    n = torch.empty((), dtype=I32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    out = torch.empty((P, cap_out), dtype=I32, device=dev)
+    counts = torch.empty((b, cap_out), dtype=I32, device=dev)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.run_reduce(
+            planes.data_ptr(), P, n_rows, inv.data_ptr(),
+            None if weights is None else weights.data_ptr(), b, cap_out,
+            aux.data_ptr(), aux.numel(), n.data_ptr(), overflow.data_ptr(),
+            out.data_ptr(), counts.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"run_reduce: CUDA launch failed with error {rc}")
+    launches["run_reduce"] += 1
+    launch_shapes["run_reduce"].add(
+        (P, n_rows, 0 if weights is None else b, cap_out))
+    return out, counts, n, overflow
+
+
 def count_sorted_planes(planes, inv: torch.Tensor,
                         weights: torch.Tensor | None = None,
                         cap_out: int | None = None):
@@ -456,8 +540,25 @@ def count_sorted_planes(planes, inv: torch.Tensor,
 
     Returns (out_planes (P, cap_out), counts (cap_out,) int32, n,
     overflow) with n and overflow 0-d tensors; overflow is n > cap_out,
-    and the first cap_out runs are kept.
+    and the first cap_out runs are kept. On a CUDA tensor the
+    ``run_reduce`` kernel, on a CPU tensor ``count_sorted_planes_plain``.
     """
+    x = as_planes(planes)
+    if cap_out is None:
+        cap_out = x.shape[1]
+    if x.device.type == "cpu":
+        return count_sorted_planes_plain(x, inv, weights, cap_out)
+    out, counts, n, overflow = run_reduce(
+        x, inv, None if weights is None else weights.reshape(1, -1), cap_out)
+    return out, counts[0], n, overflow
+
+
+def count_sorted_planes_plain(planes, inv: torch.Tensor,
+                              weights: torch.Tensor | None = None,
+                              cap_out: int | None = None):
+    """Plain version of ``count_sorted_planes`` on any device, torch ops:
+    run detection, the weight cumsum, the compaction of the run ends by a
+    prefix sum over the end flags and one scatter, the cumsum differences."""
     x = as_planes(planes)
     n_rows = x.shape[1]
     if cap_out is None:
@@ -484,7 +585,21 @@ def count_sorted_planes_multi(planes, inv: torch.Tensor,
     PartitionsCommand.cpp:1855-2100, in one pass).
 
     weights: (B, N) int32 per-bank weights. Returns (out_planes,
-    counts (B, cap_out) int32, n, overflow)."""
+    counts (B, cap_out) int32, n, overflow). On a CUDA tensor the
+    ``run_reduce`` kernel, on a CPU tensor
+    ``count_sorted_planes_multi_plain``."""
+    x = as_planes(planes)
+    if cap_out is None:
+        cap_out = x.shape[1]
+    if x.device.type == "cpu":
+        return count_sorted_planes_multi_plain(x, inv, weights, cap_out)
+    return run_reduce(x, inv, weights, cap_out)
+
+
+def count_sorted_planes_multi_plain(planes, inv: torch.Tensor,
+                                    weights: torch.Tensor,
+                                    cap_out: int | None = None):
+    """Plain version of ``count_sorted_planes_multi`` on any device."""
     x = as_planes(planes)
     if cap_out is None:
         cap_out = x.shape[1]

@@ -658,3 +658,117 @@ def test_mesh_graph_on_card_matches_cpu(mesh1):
     assert vars(sa) == vars(sb) and sa.tips_removed > 0
     assert np.array_equal(a.node_state, b.node_state)
     assert a.contigs(traversal="monument") == b.contigs(traversal="monument")
+
+
+def _packed_reads(n_reads, L, k, seed, with_n):
+    """Packed reads of a small genome, reverse complements among them,
+    lengths from under k to L, scattered N bases (with_n)."""
+    from gatb_core_tpu_torch.ops.bitpack import pack_batch_np
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 600).astype(np.uint8)
+    starts = rng.integers(0, 600 - L, n_reads)
+    codes = genome[starts[:, None] + np.arange(L)[None, :]]
+    codes[::4] = codes[::4, ::-1] ^ 2
+    lengths = rng.integers(L - 40, L + 1, n_reads).astype(np.int32)
+    lengths[0] = L
+    lengths[1::5] = rng.integers(0, k, len(lengths[1::5]))
+    valid = np.arange(L)[None, :] < lengths[:, None]
+    if with_n:
+        valid &= rng.random((n_reads, L)) > 0.02
+    words, vmask = pack_batch_np(codes, valid)
+    return words.view(np.int32), vmask.view(np.int32), lengths
+
+
+@pytest.mark.parametrize("mode", ["dense", "masked"])
+@pytest.mark.parametrize("k,L", [(15, 150), (16, 151), (31, 150), (32, 151),
+                                 (63, 151), (95, 150), (127, 160)])
+def test_extract_planes_matches_plain(cuda, k, L, mode):
+    """The extraction kernel against extract_planes_plain on the same
+    tensors: one and three passes (each pass in turn), one launch a call."""
+    from gatb_core_tpu_torch.ops import kmer_ops as tk
+
+    words, vmask, lengths = _packed_reads(300, L, k, k + L, mode == "masked")
+    words = torch.from_numpy(words).to(cuda)
+    vmask = None if mode == "dense" else torch.from_numpy(vmask).to(cuda)
+    lengths = torch.from_numpy(lengths).to(cuda)
+    rows = 300 * (L - k + 1)
+    cap = 1 << (rows - 1).bit_length()
+    for nb_passes, pass_i in ((1, 0), (3, 0), (3, 1), (3, 2)):
+        before = tk.launches["extract_planes"]
+        got = tk.extract_planes(words, vmask, lengths, k, L, cap, m=10,
+                                nb_passes=nb_passes, pass_i=pass_i)
+        assert tk.launches["extract_planes"] == before + 1
+        ref = tk.extract_planes_plain(words, vmask, lengths, k, L, cap, m=10,
+                                      nb_passes=nb_passes, pass_i=pass_i)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b), (nb_passes,
+                                                              pass_i)
+
+
+# (P, n, n_valid, weight rows: 0 = none, 1 = (N,), 3 = multi, cap_out)
+REDUCE_CASES = [
+    (1, 12411, 12000, 0, None), (2, 12411, 11000, 1, None),
+    (3, 8192, 8000, 0, 64), (4, 8192, 8192, 1, 1000),
+    (5, 5000, 4999, 3, None), (6, 4096, 3000, 1, 100),
+    (7, 9000, 8500, 3, 200), (8, 4097, 4097, 0, None),
+    (9, 12411, 12000, 1, 300), (2, 4096, 0, 0, 512), (3, 4096, 0, 1, None),
+    (2, 4096, 0, 3, 16), (1, 12411, 12000, 1, 7), (2, 1, 1, 0, None),
+    (3, 1 << 20, (1 << 20) - 5, 1, 1 << 19), (2, 3 * 4096 + 1, 9000, 3, 4)]
+
+
+@pytest.mark.parametrize("P,n,n_valid,nw,cap_out", REDUCE_CASES)
+def test_run_reduce_matches_plain(cuda, P, n, n_valid, nw, cap_out):
+    """The reduce kernel against count_sorted_planes[_multi]_plain: sorted
+    rows with long runs (one across the kernel's 4096-row blocks), weights
+    up to 2^30 (the counts wrap mod 2^32 in both), one launch a call."""
+    from gatb_core_tpu_torch.ops import sortops as ts
+
+    rng = np.random.default_rng(P * 13 + nw + n)
+    rows = rng.integers(0, 40 if P == 1 else 3, (n_valid, P)).astype(
+        np.uint32)
+    rows[::3, 0] |= np.uint32(0x80000000)
+    if n_valid > 9000:
+        rows[100:5200] = rows[100]
+    rows = rows[np.lexsort(rows.T[::-1])]
+    planes = np.full((P, n), 0xFFFFFFFF, np.uint32)
+    planes[:, :n_valid] = rows.T
+    planes = torch.from_numpy(planes.view(np.int32)).to(cuda)
+    inv = torch.arange(n, device=cuda) >= n_valid
+    weights = torch.from_numpy(rng.integers(1, 1 << 30, (max(nw, 1), n))
+                               .astype(np.int32)).to(cuda)
+    before = ts.launches["run_reduce"]
+    if nw == 3:
+        got = ts.count_sorted_planes_multi(planes, inv, weights, cap_out)
+        ref = ts.count_sorted_planes_multi_plain(planes, inv, weights,
+                                                 cap_out)
+    else:
+        w = None if nw == 0 else weights[0]
+        got = ts.count_sorted_planes(planes, inv, w, cap_out)
+        ref = ts.count_sorted_planes_plain(planes, inv, w, cap_out)
+    assert ts.launches["run_reduce"] == before + 1
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_count_launches_the_extraction_and_reduce(cuda):
+    """A fold count and an LSM count on the card: one extract_planes launch
+    per superbatch and the run_reduce kernel in every reduce; tables equal
+    to the CPU's."""
+    from gatb_core_tpu_torch.ops import kmer_ops as tk
+    from gatb_core_tpu_torch.ops import sortops as ts
+
+    rng = np.random.default_rng(3)
+    genome = "".join(rng.choice(list("ACGT"), size=4000))
+    reads = [genome[i:i + 100] for i in range(0, 3900, 3)]
+    for kw in ({}, {"carry_accumulator": False, "nb_passes": 2}):
+        tk.reset_launches()
+        ts.reset_launches()
+        res = count_kmers(BankStrings(*reads), kmer_size=31, abundance_min=1,
+                          superbatch_rows=1 << 14, **kw)
+        assert tk.launches["extract_planes"] >= 2
+        assert ts.launches["run_reduce"] >= 1
+        cpu = count_kmers(BankStrings(*reads), kmer_size=31, abundance_min=1,
+                          superbatch_rows=1 << 14, device="cpu", **kw)
+        assert np.array_equal(res.solid_kmers, cpu.solid_kmers)
+        assert np.array_equal(res.solid_counts, cpu.solid_counts)
