@@ -43,6 +43,7 @@ from ..kmer.counting import CountConfig, SortingCount
 from ..kmer.debloom import (BloomCfpContainer, CascadeCFP, DebloomResult,
                             build_debloom, rows_to_device)
 from ..kmer.model import canonical, kmer_to_string, string_to_kmer
+from ..misc import time_info
 from ..ops.kmer_ops import kmers_to_py, nb_limbs, py_to_limbs
 from ..ops.neighbor_ops import neighbor_candidates
 from ..storage import hdf5 as storage_mod
@@ -61,12 +62,18 @@ def _adjacency_kernel(nodes: torch.Tensor, table: torch.Tensor, k: int,
     its membership oracle per neighbor (Graph.cpp:3508-3610). nodes:
     (N, W) limbs; table: (C, W) limbs, the first ``n_table`` rows live.
     Returns (N,) uint8 on the nodes' device."""
-    from ..ops.sortops import rank_join_traced
-
-    n = nodes.shape[0]
     if n_table is None:
         n_table = table.shape[0]
     cands = neighbor_candidates(nodes, k)      # (N, 8, W)
+    return _candidate_masks(cands, table, n_table, index)
+
+
+def _candidate_masks(cands: torch.Tensor, table: torch.Tensor, n_table,
+                     index=None) -> torch.Tensor:
+    """The masks of ``_adjacency_kernel`` from its (N, 8, W) candidates."""
+    from ..ops.sortops import rank_join_traced
+
+    n = cands.shape[0]
     _, found = rank_join_traced(table, cands.reshape(n * 8, -1), n_table,
                                 index=index)
     weights = 1 << torch.arange(8, dtype=torch.int32, device=found.device)
@@ -189,12 +196,13 @@ class Graph:
                     raise rep_box[1]
                 rep_box[0].save(storage)
 
-        graph = cls(kmer_size, result.solid_kmers, result.solid_counts,
-                    storage, result.info, mesh=mesh, device=device)
-        graph.build_postsolid(bloom_kind=bloom_kind,
-                              debloom_kind=debloom_kind,
-                              mphf_kind=mphf_kind,
-                              build_branching=build_branching)
+        with time_info.span("graph.build", sync=True):
+            graph = cls(kmer_size, result.solid_kmers, result.solid_counts,
+                        storage, result.info, mesh=mesh, device=device)
+            graph.build_postsolid(bloom_kind=bloom_kind,
+                                  debloom_kind=debloom_kind,
+                                  mphf_kind=mphf_kind,
+                                  build_branching=build_branching)
         if storage is not None:
             storage.flush()
         return graph
@@ -210,11 +218,9 @@ class Graph:
         Algorithm.cpp:56-62 pattern), also when every stage is 'none'.
         'boophf' and 'emphf' both build the BooPHF, as in the JAX
         package."""
-        from ..misc.time_info import TimeInfo
-
-        ti = TimeInfo()
+        ti = time_info.TimeInfo()
         if mphf_kind != "none":
-            with ti.section("mphf"):
+            with ti.section("mphf", span="graph.mphf"):
                 self.build_mphf()  # MPHFAlgorithm (Graph.cpp:488-498)
                 if self.storage is not None:
                     storage_mod.save_mphf(self.storage, self._mphf,
@@ -223,7 +229,7 @@ class Graph:
                                           kmer_size=self._k)
         if bloom_kind != "none" and debloom_kind != "none":
             # BloomAlgorithm + DebloomAlgorithm (Graph.cpp:517-556)
-            with ti.section("debloom"):
+            with ti.section("debloom", span="graph.debloom"):
                 deb = build_debloom(self._padded_table(), self._k,
                                     cascading=debloom_kind == "cascading",
                                     bloom_kind=bloom_kind, mesh=self.mesh,
@@ -238,7 +244,7 @@ class Graph:
                                              self._k, kind=deb.kind,
                                              cascade=deb.cascade)
         if build_branching:
-            with ti.section("branching"):
+            with ti.section("branching", span="graph.branching"):
                 # BranchingAlgorithm (Graph.cpp:572-582)
                 self.branching_nodes()
         self.info.update(ti.get_properties("postsolid_time"))
@@ -370,14 +376,18 @@ class Graph:
 
         self._mphf = BooPHF.build(self._padded_table(), self.nb_nodes)
 
+    @time_info.spanned("graph.node_index")
     def node_index(self, nodes) -> np.ndarray:
         """nodeMPHFIndex (Graph.hpp:924): rank in sorted table, -1 if
         absent. The JAX package answers through the BooPHF once built,
         with the same result; on the device the rank search (``rank_rows``)
         is many times faster than the BooPHF's query (``chip_smoke.py``
         phase 10 times both), so it answers always."""
-        q = rows_to_device(self._as_batch(nodes), self.device)
-        return self._set.rank(q).cpu().numpy()
+        with time_info.span("query.staging"):
+            q = rows_to_device(self._as_batch(nodes), self.device)
+        ranks = self._set.rank(q)
+        with time_info.span("query.fetch"):
+            return ranks.cpu().numpy()
 
     def query_abundance(self, nodes) -> np.ndarray:
         """Discretized abundance (queryAbundance, Graph.hpp:900)."""
@@ -426,12 +436,17 @@ class Graph:
             return None
         return self._set.index
 
+    @time_info.spanned("graph.adjacency_masks")
     def adjacency_masks(self, nodes) -> np.ndarray:
         """8-bit neighbor mask per node: bits 0-3 out by nt, 4-7 in by nt."""
-        batch = self._as_batch(nodes)
-        return _adjacency_kernel(rows_to_device(batch, self.device),
-                                 self._padded_table(), self._k,
-                                 self._set.n, self._set.index).cpu().numpy()
+        with time_info.span("query.staging"):
+            q = rows_to_device(self._as_batch(nodes), self.device)
+        with time_info.span("query.candidates"):
+            cands = neighbor_candidates(q, self._k)
+        masks = _candidate_masks(cands, self._padded_table(), self._set.n,
+                                 self._set.index)
+        with time_info.span("query.fetch"):
+            return masks.cpu().numpy()
 
     def neighbors(self, node) -> dict:
         """Scalar convenience: {'out': [limbs...], 'in': [limbs...]}."""
@@ -457,33 +472,29 @@ class Graph:
         ``sweep_chunk`` nodes (at most ``chunk`` where given), or over the
         graph's mesh."""
         if self._adjacency is None:
-            import time as _t
-
             from ..ops.sortops import sweep_chunk
 
-            t0 = _t.time()
-            if self.mesh is not None and self.nb_nodes:
-                from ..parallel.postsolid import distributed_adjacency
+            ti = time_info.TimeInfo()
+            with ti.section("adjacency", span="graph.adjacency"):
+                if self.mesh is not None and self.nb_nodes:
+                    from ..parallel.postsolid import distributed_adjacency
 
-                self._adjacency = distributed_adjacency(
-                    self.mesh, self._padded_table(), self._k,
-                    index=self._sweep_index())
-                self.info["postsolid_time.adjacency"] = round(
-                    _t.time() - t0, 3)
-                self._store_adjacency()
-                return self._adjacency
-            table = self._padded_table()
-            step = sweep_chunk(self.nb_nodes)
-            if chunk:   # caller-imposed device-memory bound
-                step = max(1, min(step, chunk))
-            masks = torch.empty((self.nb_nodes,), dtype=torch.uint8,
-                                device=self.device)
-            for i in range(0, self.nb_nodes, step):
-                masks[i:i + step] = _adjacency_kernel(
-                    table[i:i + step], table, self._k, self._set.n,
-                    self._set.index)
-            self._adjacency = masks.cpu().numpy()
-            self.info["postsolid_time.adjacency"] = round(_t.time() - t0, 3)
+                    self._adjacency = distributed_adjacency(
+                        self.mesh, self._padded_table(), self._k,
+                        index=self._sweep_index())
+                else:
+                    table = self._padded_table()
+                    step = sweep_chunk(self.nb_nodes)
+                    if chunk:   # caller-imposed device-memory bound
+                        step = max(1, min(step, chunk))
+                    masks = torch.empty((self.nb_nodes,), dtype=torch.uint8,
+                                        device=self.device)
+                    for i in range(0, self.nb_nodes, step):
+                        masks[i:i + step] = _adjacency_kernel(
+                            table[i:i + step], table, self._k, self._set.n,
+                            self._set.index)
+                    self._adjacency = masks.cpu().numpy()
+            self.info.update(ti.get_properties("postsolid_time", total=False))
             self._store_adjacency()
         return self._adjacency
 
@@ -550,18 +561,17 @@ class Graph:
         """Run the full tip/bulge/EC simplification (Graph::simplify,
         Graph.hpp:796 / Simplifications.cpp:112-215) on the device;
         deletions land in ``node_state``."""
-        import time as _t
-
         from .simplifications import Simplifications
 
-        t0 = _t.time()
-        simp = Simplifications(self, verbose=verbose)
-        stats = simp.simplify()
+        ti = time_info.TimeInfo()
+        with ti.section("simplify"):
+            simp = Simplifications(self, verbose=verbose)
+            stats = simp.simplify()
         # keep the instance: its full-table candidate sweep and final
         # compaction serve the Monument engine (assemble_contigs) with no
         # second sweep
         self._simplifications = simp
-        self.info["postsolid_time.simplify"] = round(_t.time() - t0, 3)
+        self.info.update(ti.get_properties("postsolid_time", total=False))
         return stats
 
     def contigs(self, min_contig_len: int | None = None,
@@ -585,15 +595,15 @@ class Graph:
         if min_contig_len is None:
             min_contig_len = 2 * self._k + 1
         if traversal == "monument":
-            import time as _t
-
             from .traversal import assemble_contigs
 
-            t0 = _t.time()
-            seqs = assemble_contigs(self, traversal="monument",
-                                    min_contig_len=min_contig_len,
-                                    engine="fast")
-            self.info["postsolid_time.contigs"] = round(_t.time() - t0, 3)
+            ti = time_info.TimeInfo()
+            with ti.section("contigs"):
+                seqs = assemble_contigs(self, traversal="monument",
+                                        min_contig_len=min_contig_len,
+                                        engine="fast")
+            self.info.update(ti.get_properties("postsolid_time",
+                                               total=False))
             return seqs, None
         ug = self.unitig_graph()
         lens = np.asarray(ug.unitig_lengths())
@@ -606,23 +616,22 @@ class Graph:
         UnitigsConstructionAlgorithm equivalent) on the device; a graph
         with deleted nodes through a fresh Simplifications' compaction, as
         in the JAX package."""
-        import time as _t
-
         from .graph_unitigs import build_unitig_graph
 
-        t0 = _t.time()
-        if not (self.node_state & 1).any():
-            adj = self.precompute_adjacency()
-            ug = build_unitig_graph(self._padded_table(), self.solid_counts,
-                                    adj, self._k, mesh=self.mesh,
-                                    device=self.device,
-                                    index=self._sweep_index())
-        else:
-            from .simplifications import Simplifications
+        ti = time_info.TimeInfo()
+        with ti.section("unitigs", span="unitigs.build", sync=True):
+            if not (self.node_state & 1).any():
+                adj = self.precompute_adjacency()
+                ug = build_unitig_graph(self._padded_table(),
+                                        self.solid_counts, adj, self._k,
+                                        mesh=self.mesh, device=self.device,
+                                        index=self._sweep_index())
+            else:
+                from .simplifications import Simplifications
 
-            simp = Simplifications(self)
-            _, ug = simp._compact(*simp._rows(simp._live()))
-        self.info["postsolid_time.unitigs"] = round(_t.time() - t0, 3)
+                simp = Simplifications(self)
+                _, ug = simp._compact(*simp._rows(simp._live()))
+        self.info.update(ti.get_properties("postsolid_time", total=False))
         return ug
 
     def get_info(self) -> dict:

@@ -49,6 +49,7 @@ import torch
 
 from ..bank.fasta import open_bank
 from ..convert import kmers_to_numpy
+from ..misc import time_info
 from ..misc.algorithm import Algorithm
 from ..ops.bitpack import ascii_to_codes_np
 from ..ops.kmer_ops import (extract_kmers, extract_planes, kmers_to_py,
@@ -175,16 +176,24 @@ def _prefetch(gen, depth: int = 4):
     Overlaps host-side batch production (FASTA parse + encode) with device
     work; exceptions propagate to the consumer. If the consumer stops
     early, the producer is signalled via a cancellation event and joined,
-    so open banks/parsers are released promptly."""
+    so open banks/parsers are released promptly. Each of the producer's
+    ``next()`` is a ``count.parse`` span under the consumer's open span,
+    each wait of the consumer a ``count.parse_wait`` span."""
     import queue as queue_mod
 
     q: "queue_mod.Queue" = queue_mod.Queue(maxsize=depth)
     cancel = threading.Event()
     DONE = object()
+    parent = time_info.current()
 
     def run():
         try:
-            for item in gen:
+            it = iter(gen)
+            while True:
+                with time_info.span("count.parse", parent=parent):
+                    item = next(it, DONE)
+                if item is DONE:
+                    break
                 while not cancel.is_set():
                     try:
                         q.put(item, timeout=0.1)
@@ -202,7 +211,8 @@ def _prefetch(gen, depth: int = 4):
     t.start()
     try:
         while True:
-            item = q.get()
+            with time_info.span("count.parse_wait"):
+                item = q.get()
             if item is DONE:
                 break
             if isinstance(item, BaseException):
@@ -480,7 +490,8 @@ def _merge_smallest_pair(lst) -> None:
     # pipeline
     for i, t in enumerate(lst):
         if t[3] >= _SYNC_UB_ROWS:
-            lst[i] = (t[0], t[1], t[2], int(t[2]))
+            with time_info.span("count.merge_wait"):
+                lst[i] = (t[0], t[1], t[2], int(t[2]))
     lst.sort(key=lambda t: t[3])
     (pa, ca, na, ua), (pb, cb, nb, ub) = lst[0], lst[1]
     cap_out = _next_pow2(max(ua + ub, 256))
@@ -681,9 +692,9 @@ class _StreamedTable:
         i = 0
         while True:
             with self._cond:
-                while (i >= len(self._chunks) and not self._done
-                       and self._err is None):
-                    self._cond.wait()
+                if self._missing(i):
+                    with time_info.span("count.fetch_wait"):
+                        self._cond.wait_for(lambda: not self._missing(i))
                 if self._err is not None:
                     raise self._err
                 if i < len(self._chunks):
@@ -692,6 +703,11 @@ class _StreamedTable:
                     return
             yield chunk
             i += 1
+
+    def _missing(self, i: int) -> bool:
+        """Chunk ``i`` is still to come (under ``_cond``)."""
+        return i >= len(self._chunks) and not self._done \
+            and self._err is None
 
     def materialize(self):
         """Concatenated (kmers, counts) host arrays."""
@@ -766,7 +782,11 @@ class SortingCount(Algorithm):
     ``processor`` plugs a custom CountProcessor (kmer/count_processor.py,
     the ICountProcessor.hpp:92-200 extension point) into the run: it
     joins the processor vector as its own sweep, receiving every pass's
-    kmer-complete table with full lifecycle calls."""
+    kmer-complete table with full lifecycle calls. ``run()`` records the
+    ``count`` span, with the superbatches dispatched and the ``replays``
+    among them (dispatched again after an overflow) as its counts."""
+
+    span = "count"
 
     def __init__(self, config: CountConfig | None = None, processor=None):
         super().__init__("dsk")
@@ -795,6 +815,7 @@ class SortingCount(Algorithm):
         k = cfg.kmer_size
         w = nb_limbs(k)
         t0 = time.time()
+        root = time_info.current()      # ``count``, where it is recorded
 
         builder = _BatchBuilder(k, cfg.batch_reads, cfg.batch_len)
         valid_scalars: list[int] = []
@@ -970,7 +991,8 @@ class SortingCount(Algorithm):
                                   _next_pow2(fold["n_known"]
                                              + 4 * cap_out_d))))
             # reset=False: every accumulator comes fresh from fold_arrays
-            with ti.section("2.sort"):
+            root.count(superbatches=1)
+            with ti.section("2.sort", span="count.dispatch"):
                 out = _superbatch_count_fold(
                     codes, valid, lengths, pass_i,
                     fold["p"], fold["c"], fold["n"], False,
@@ -993,7 +1015,7 @@ class SortingCount(Algorithm):
         def fold_resolve(item):
             (flags, n_loc, keep_n, nv, ni, staged, pass_i, count_stats,
              g_len, rows, compact) = item
-            with ti.section("2.sort"):
+            with ti.section("2.sort", span="count.resolve"):
                 # ONE device->host copy for all of this superbatch's
                 # scalars
                 fl0, fl1, nl, kn, nvv, niv = torch.cat(
@@ -1038,6 +1060,7 @@ class SortingCount(Algorithm):
                             fold["parked"].append(
                                 (fold["p"], fold["c"], fold["n"]))
                         fold_arrays(newcap)
+                    root.count(replays=len(replays))
                     for staged, pi, _ in replays:
                         fold_dispatch(*staged, pi, False,
                                       staged[0].shape[0])
@@ -1051,13 +1074,15 @@ class SortingCount(Algorithm):
                 fold_resolve(pending.pop(0))
             if fold["replay"]:
                 fold_grow_and_replay()
-            with ti.section("3.merge"):
+            with ti.section("3.merge", span="count.merge"):
                 for (pp, pc, pn) in fold["parked"]:
                     while True:
                         planes_m, counts_m, n_m, ovf_m = merge_tables_planes(
                             pp, pc, pn, fold["p"], fold["c"], fold["n"],
                             cap_out=fold["cap"])
-                        if not bool(ovf_m):
+                        with time_info.span("count.merge_wait"):
+                            ovf_m = bool(ovf_m)
+                        if not ovf_m:
                             break
                         if fold["cap"] * 2 > cap_budget:
                             raise _RePlan(nb_passes)
@@ -1068,8 +1093,10 @@ class SortingCount(Algorithm):
                 if fold["p"] is None:
                     host_tables[pass_i] = _empty_host_table(w)
                 else:
+                    with time_info.span("count.merge_wait"):
+                        n_pass = int(fold["n"])
                     host_tables[pass_i] = _StreamedTable(
-                        fold["p"], fold["c"], int(fold["n"]), w,
+                        fold["p"], fold["c"], n_pass, w,
                         chunk_rows=cfg.fetch_chunk_rows)
             # the streamed fetch still reads these tensors and the fold
             # step updates its accumulator in place, so the next pass
@@ -1078,6 +1105,7 @@ class SortingCount(Algorithm):
             fold["n_known"] = 0
 
         def lsm_count(codes, valid, lengths, pass_i, cap_out):
+            root.count(superbatches=1)
             return _superbatch_count(
                 codes, valid, lengths, pass_i, k=k, m=cfg.minimizer_size,
                 nb_passes=nb_passes, spare=spare, cap_out=cap_out,
@@ -1097,7 +1125,7 @@ class SortingCount(Algorithm):
             """Sync point of one superbatch: overflow check (+ exact rerun
             at full capacity when tripped), stats, ratio update."""
             out, rows, inputs, pass_i, first_pass, g_len = item
-            with ti.section("2.sort"):
+            with ti.section("2.sort", span="count.resolve"):
                 # ONE device->host copy for all of this superbatch's
                 # scalars (overflow flag, n, valid/inside counts)
                 ov, n, nv, ni = torch.stack(
@@ -1106,7 +1134,9 @@ class SortingCount(Algorithm):
                 if ov:  # overflow: rerun unbounded (always exact); the
                     # table's capacity is then the padded row count, a
                     # power of two with a sentinel tail as merges need
-                    out = lsm_count(*inputs, pass_i, None)
+                    root.count(replays=1)
+                    with time_info.span("count.dispatch"):
+                        out = lsm_count(*inputs, pass_i, None)
                     n, nv, ni = torch.stack(
                         [out[2].to(I64), out[4], out[5]]).tolist()
                 out_p, counts = out[0], out[1]
@@ -1128,7 +1158,7 @@ class SortingCount(Algorithm):
                 if sum(t[3] for t in lst) > budget_rows:
                     raise _RePlan(nb_passes)
             n_resolved[0] += 1
-            with ti.section("3.merge"):
+            with ti.section("3.merge", span="count.merge"):
                 # LSM-style size-classed merging: only merge the two
                 # smallest tables while they are in the same size class.
                 # An accumulate-into-one policy re-sorts the big table
@@ -1148,14 +1178,15 @@ class SortingCount(Algorithm):
             active pass's tables, so the _RePlan budget bounds it."""
             while pending:
                 resolve(pending.pop(0))
-            with ti.section("3.merge"):
+            with ti.section("3.merge", span="count.merge"):
                 lst = tables.get(pass_i, [])
                 while len(lst) > 1:
                     _merge_smallest_pair(lst)
                 if lst:
                     planes_d, counts_d, n_d, _ = lst[0]
-                    host_tables[pass_i] = _MaterialTable(*_fetch_table(
-                        planes_d, counts_d, int(n_d), w))
+                    with time_info.span("count.merge_wait"):
+                        host_tables[pass_i] = _MaterialTable(*_fetch_table(
+                            planes_d, counts_d, int(n_d), w))
                     lst.clear()
                 else:
                     host_tables[pass_i] = _empty_host_table(w)
@@ -1163,8 +1194,9 @@ class SortingCount(Algorithm):
         def dispatch_staged(codes, valid, lengths, pass_i):
             """flush_group's tail for already-staged device tensors."""
             rows = codes.shape[0] * rows_per_batch
-            out = lsm_count(codes, valid, lengths, pass_i,
-                            lsm_cap_out(rows))
+            with ti.section("2.sort", span="count.dispatch"):
+                out = lsm_count(codes, valid, lengths, pass_i,
+                                lsm_cap_out(rows))
             pending.append((out, rows, (codes, valid, lengths), pass_i,
                             False, codes.shape[0]))
             while len(pending) > 3:
@@ -1189,7 +1221,7 @@ class SortingCount(Algorithm):
                     group.append((np.zeros(c_shape, c_dt),
                                   np.zeros(v_shape, v_dt),
                                   np.zeros((B,), np.int32), 0))
-            with ti.section("1.stack"):
+            with ti.section("1.stack", span="count.stage"):
                 codes = _stage(np.stack([b[0] for b in group]), device)
                 # dense transfer (fold+packed): a clean bank's all-ones
                 # validity masks are not sent; extraction uses the
@@ -1213,7 +1245,7 @@ class SortingCount(Algorithm):
                     fold_grow_and_replay()
                 return
             rows = codes.shape[0] * rows_per_batch
-            with ti.section("2.sort"):
+            with ti.section("2.sort", span="count.dispatch"):
                 out = lsm_count(codes, valid, lengths, pass_i,
                                 lsm_cap_out(rows))
             pending.append((out, rows, (codes, valid, lengths), pass_i,
@@ -1290,7 +1322,7 @@ class SortingCount(Algorithm):
         if self.processor is not None:
             vector.append(self.processor)
 
-        with ti.section("4.process"):
+        with ti.section("4.process", span="count.process"):
             for proc in vector:
                 proc.begin(cfg)
                 clones = []
@@ -1373,7 +1405,7 @@ def count_kmers(bank, processor=None, **kwargs) -> CountResult:
     ``processor``: optional custom CountProcessor joining the run's
     processor vector (see SortingCount)."""
     return SortingCount(CountConfig(**kwargs),
-                        processor=processor).execute(bank)
+                        processor=processor).run(bank)
 
 
 # ---------------------------------------------------------------------------

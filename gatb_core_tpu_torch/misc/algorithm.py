@@ -9,14 +9,15 @@ executeAlgorithm wrapper does around every build stage.
 
 from __future__ import annotations
 
-import time
-
 from .properties import Properties
 from .time_info import TimeInfo
 
 
 class Algorithm:
     """execute()/get_info()/TimeInfo contract (Algorithm.hpp)."""
+
+    #: the span ``run()`` records around ``execute()``, if any
+    span: str | None = None
 
     def __init__(self, name: str, props: dict | None = None):
         self.name = name
@@ -29,11 +30,11 @@ class Algorithm:
 
     def run(self, *args, **kw):
         """executeAlgorithm wrapper (Graph.cpp:242-262): times execute()
-        and merges the stopwatch tree into the output info."""
-        t0 = time.time()
-        with self.time_info.section("execute"):
+        and merges the stopwatch tree into the output info; ``exec_time``
+        is the ``span``'s time where it is recorded."""
+        with self.time_info.section("execute", span=self.span) as sec:
             result = self.execute(*args, **kw)
-        self.info["exec_time"] = round(time.time() - t0, 3)
+        self.info["exec_time"] = round(sec.seconds, 3)
         self.info.update(self.time_info.get_properties("time"))
         return result
 
