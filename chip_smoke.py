@@ -46,6 +46,15 @@ numpy ground truth computed here:
      shape the co-sort of table and queries through sort_u32_limbs (the
      JAX package's formulation), and the time of neighbor_candidates for
      2^20 nodes;
+     neighbor_masks (ops/neighbor_ops) bit for bit against its plain version
+     at k = 11, 16, 17, 31, 32, 33, 63, 65, 95, 111 and 127 (W 1-8: the
+     index's walk and the binary search), the table's index held and a
+     transient one, a padded table, fewer live rows, one and none, one node
+     and none, storage off 16-byte alignment; its time at the two shapes of
+     rank_sweep.py (71,000 query nodes and the 2^21-node sweep step on the
+     30M-row k=31 table) beside the chain it replaces
+     (neighbor_candidates, rank_rows, the pack), rank_rows alone on the
+     same candidates and its bound;
      tile_sort bit for bit against its plain version for 1, 2,
      3, 4, 5 and 9 planes (rows in registers) and 7 (the kernel's path for
      any other number), at every tile from 2 rows to the largest it takes
@@ -211,7 +220,7 @@ numpy ground truth computed here:
      byte-equal, every property equal bar the time-valued xml dump;
      (e) ``system.info``: the card's name as nvidia-smi prints it; then
      ``check_graph`` on phase 9c's stress graph (its adjacency held, so no
-     rank_rows) under torch.profiler (wall, device time and its share):
+     kernel launch) under torch.profiler (wall, device time and its share):
      checksumBranching equal to ``checksum_branching()``, nbSuccessors to
      the out-degree sum, abundance to the counts' sum. The processes and
      the CPU build run beside (a)-(e); each step's time is logged.
@@ -232,14 +241,15 @@ just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels, extract_planes and
 run_reduce in the counts of phases 2-4, 6, 7, 13b and 14a and in each
 rank's bench count of 14b;
-bitonic_u64 and the two merge kernels in phase 8; rank_rows and the three
-limb-sort kernels in each part of phase 9 and in each ``Graph.create`` of
-phase 12; rank_rows in each part of phases 10 and 11, the MPHF's fallback
+bitonic_u64 and the two merge kernels in phase 8; rank_rows, neighbor_masks
+and the three limb-sort kernels in each part of phase 9 and in each
+``Graph.create`` of phase 12, neighbor_masks exactly once per sweep chunk
+in 9c; rank_rows in each part of phases 10 and 11, the MPHF's fallback
 search and the unitig candidate ranks; the two merge kernels, exactly
 twice log2(tables) times, in each stacked tree of phase 13, tile_sort in
 ``merge_stacked`` and the three limb-sort kernels in its counts and Leon's
 device stage; rank_rows and the three limb-sort kernels in phase 15's
-``Graph.create``, rank_rows in its ``check_graph``; the sort kernels and
+``Graph.create``, neighbor_masks in its ``check_graph``; the sort kernels and
 rank_rows over the whole of phase 16). The rank index of a
 graph's table is built once, in its postsolid build (phases 9 and 12's create), and
 walked again by phases 10-12 without a build. In phase 12 ``simplify()`` with
@@ -275,18 +285,22 @@ KERNEL_SOURCE = {
     "merge_tiles": "gatb_core_tpu_torch/ops/csrc/limb_sort.cu",
     "bitonic_u64": "gatb_core_tpu_torch/ops/csrc/limb_sort.cu",
     "rank_rows": "gatb_core_tpu_torch/ops/csrc/rank_search.cu",
+    "neighbor_masks": "gatb_core_tpu_torch/ops/csrc/rank_search.cu",
     "extract_planes": "gatb_core_tpu_torch/ops/csrc/kmer_extract.cu",
     "run_reduce": "gatb_core_tpu_torch/ops/csrc/run_reduce.cu",
 }
-# rank_rows, extract_planes and run_reduce have no Pallas original: they
-# replace the jnp sort-join, the jnp extraction (with the pass filter and
-# the sentinel encoding) and the jnp distinct reduce
+# rank_rows, neighbor_masks, extract_planes and run_reduce have no Pallas
+# original: they replace the jnp sort-join, the jnp neighbour candidates
+# with the sort-join, the jnp extraction (with the pass filter and the
+# sentinel encoding) and the jnp distinct reduce
 REPLACES = {
     "tile_sort": "gatb_core_tpu/ops/pallas_sort.py:150",
     "merge_partition": "gatb_core_tpu/ops/pallas_sort.py:204",
     "merge_tiles": "gatb_core_tpu/ops/pallas_sort.py:181",
     "bitonic_u64": "gatb_core_tpu/ops/pallas_sort.py:45",
     "rank_rows": "gatb_core_tpu/ops/sortops.py:839",
+    "neighbor_masks": "gatb_core_tpu/ops/neighbor_ops.py:83 + "
+                      "gatb_core_tpu/ops/sortops.py:839",
     "extract_planes": "gatb_core_tpu/ops/kmer_ops.py:141",
     "run_reduce": "gatb_core_tpu/ops/sortops.py:559",
 }
@@ -296,6 +310,8 @@ LIMB_KERNELS = ("tile_sort", "merge_partition", "merge_tiles",
 SINGLE_S: dict = {}
 SORT_KERNELS = ("tile_sort", "merge_partition", "merge_tiles")
 GRAPH_KERNELS = SORT_KERNELS + ("rank_rows",)
+# a single-device build with its branching stage: the adjacency sweep too
+BUILD_KERNELS = GRAPH_KERNELS + ("neighbor_masks",)
 # a count: the extraction, the sort kernels and the distinct reduce
 COUNT_KERNELS = SORT_KERNELS + ("extract_planes", "run_reduce")
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
@@ -1268,6 +1284,132 @@ def phase_rank_kernel(torch, S, R) -> int:
     return err
 
 
+NEIGHBOR_KS = (11, 16, 17, 31, 32, 33, 63, 65, 95, 111, 127)
+
+
+def mask_table(torch, k: int, n: int, cap: int, seed: int):
+    """The sorted distinct canonical k-mers of a random genome of n + k - 1
+    bases (n rows, less the few repeats) under an all-ones padded tail of
+    at least cap rows: ((rows, W) int32, live)."""
+    from gatb_core_tpu_torch.tools.rank_sweep import genome_rows
+
+    if n == 0:
+        return torch.full((max(cap, 1), (k + 15) // 16), -1,
+                          dtype=torch.int32, device="cuda"), 0
+    rows = genome_rows(torch, k, n + k - 1, seed)
+    live, w = rows.shape
+    table = torch.full((max(cap, live), w), -1, dtype=torch.int32,
+                       device="cuda")
+    table[:live] = rows
+    return table, live
+
+
+def mask_nodes(torch, table, live: int, n: int, k: int, gen):
+    """n nodes in random order: 6 in 7 drawn from the live rows, the rest
+    random k-mers (limb 0 holds only the k-mer's bits)."""
+    w = table.shape[1]
+    out = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    bits = 2 * k - 32 * (w - 1)
+    if bits < 32:
+        out[:, 0] &= (1 << bits) - 1
+    if live and n:
+        pick = torch.randint(0, live, (n,), device="cuda", generator=gen)
+        keep = torch.arange(n, device="cuda") % 7 != 0
+        out = torch.where(keep[:, None], table[pick], out)
+    return out.contiguous()
+
+
+def masks_err(N, table, nodes, live: int, k: int, index=None) -> int:
+    """max |kernel - plain| of one neighbor_masks call (through the
+    table's ``index`` where given, else a transient one; the plain
+    version walks the same index, or searches without one)."""
+    got = N.neighbor_masks(nodes, table, live, k, index=index)
+    want = N.neighbor_masks_plain(nodes, table, live, k, index)
+    if nodes.shape[0] == 0:
+        return int(got.shape != want.shape or got.dtype != want.dtype)
+    return max_abs_err(got, want)
+
+
+def phase_masks_kernel(torch) -> int:
+    """neighbor_masks against neighbor_masks_plain on the card, bit for
+    bit, at every width."""
+    from gatb_core_tpu_torch.ops import neighbor_ops as N
+    from gatb_core_tpu_torch.ops import rank_search as R
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    err, n_checks = 0, 0
+    for k in NEIGHBOR_KS:
+        table, live = mask_table(torch, k, 50_000, 50_013, seed=k)
+        nodes = torch.cat([mask_nodes(torch, table, live, 20_000, k, gen),
+                           torch.full((1, table.shape[1]), -1,
+                                      dtype=torch.int32, device="cuda")])
+        for n in (live, live - 3, 1, 0):
+            index = R.RankIndex(table, n)
+            for q in (nodes, nodes[:1].contiguous(), nodes[:0]):
+                err = max(err, masks_err(N, table, q, n, k, index),
+                          masks_err(N, table, q, n, k))
+                n_checks += 2
+        # storage off 16-byte alignment: the wrapper hands the kernel copies
+        shifted = []
+        for x in (nodes, table):
+            flat = torch.empty(x.numel() + 1, dtype=torch.int32,
+                               device="cuda")
+            shifted.append(flat[1:].view_as(x))
+            shifted[-1].copy_(x)
+        err = max(err, max_abs_err(
+            N.neighbor_masks(shifted[0], shifted[1], live, k),
+            N.neighbor_masks_plain(nodes, table, live, k)))
+        n_checks += 1
+    N.reset_launches()
+    torch.cuda.synchronize()
+    log(f"phase 1 neighbor_masks: {n_checks} inputs at k {NEIGHBOR_KS}, "
+        f"max |kernel - plain| {err}")
+    check(err == 0, "neighbor_masks disagrees with its plain version")
+    return err
+
+
+def phase_masks_timing(torch, card: str):
+    """neighbor_masks at the two mask shapes of rank_sweep.py (CUDA
+    events, median after warm-up; the host clock with a synchronise
+    beside): 71,000 query nodes and the 2^21-node sweep step on the
+    30M-row k=31 table, through its index, beside the chain it replaces
+    (neighbor_candidates, rank_rows, the pack) and rank_rows alone on the
+    same 8 N candidates, each result held against the chain's and the
+    plain version's. The bound counts a node's row read, 8 table rows
+    read and one byte written per node. Returns ({ms, plain_ms,
+    library_ms, bound_ms, bound_by} of the query shape and every shape
+    under ``shapes``, max |kernel - chain|: 0, or a raise)."""
+    from gatb_core_tpu_torch.ops import neighbor_ops as N
+    from gatb_core_tpu_torch.ops import rank_search as R
+    from gatb_core_tpu_torch.tools import rank_sweep as RS
+
+    res = {}
+    for name, table, nodes in RS.mask_shapes(torch):
+        try:
+            r = RS.measure_masks(torch, R, N, table, nodes, 31)
+        except RuntimeError as e:
+            raise Failure(f"timing: {e}")
+        m, w = nodes.shape
+        r["bound_ms"], r["bound_by"] = bound(m * w * 4 + 8 * m * w * 4 + m,
+                                             0)
+        log(f"time neighbor_masks ({name}): {r['ms']:.4f} ms through the "
+            f"index ({r['wall_ms']:.4f} ms on the host's clock), the chain "
+            f"it replaces {r['chain_ms']:.4f} ms ({r['chain_wall_ms']:.4f}), "
+            f"rank_rows alone on the {8 * m} candidates "
+            f"{r['rank_rows_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({m} nodes of {w} limbs on {r['n_table']} "
+            f"rows, {r['nonzero']} masks not 0); {card}")
+        res[name] = r
+        del table, nodes
+    torch.cuda.empty_cache()
+    times = {"ms": res["q"]["ms"], "plain_ms": res["q"]["chain_ms"],
+             "library_ms": None, "bound_ms": res["q"]["bound_ms"],
+             "bound_by": res["q"]["bound_by"], "shapes": res}
+    return times, 0
+
+
 def rank_cosort(torch, S, table, queries, n_table: int):
     """The JAX package's formulation of the rank (sortops.py:852-884)
     carried over to the port's sort kernels: co-sort table and queries with
@@ -1478,7 +1620,7 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
             n_checks += 1
             del x, ref
     # extract_planes: random reads of the launch's shape, the last pass
-    _, K, T = wrapper_modules()
+    _, K, T, N = wrapper_modules()
     for k, L, r, nw, nv, cap, m, nb_passes in sorted(
             shapes["extract_planes"]):
         words, vmask, lengths = packed_batch(torch, r, L, k, gen, nv == 0)
@@ -1501,6 +1643,21 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
             T, planes, inv, reduce_weights(torch, b, n, gen), cap_out))
         n_checks += 1
         del planes, inv
+    # neighbor_masks: a genome's k-mers of the launch's live rows under its
+    # padded tail, and its index; nodes 6 in 7 present
+    for w, k, cap, n_table, n in sorted(shapes["neighbor_masks"]):
+        if (w, k, cap, n_table) not in tables:
+            tables.clear()
+            table, live = mask_table(torch, k, n_table, cap, seed=n_table)
+            tables[(w, k, cap, n_table)] = (table, live,
+                                            R.RankIndex(table, live))
+        table, live, index = tables[(w, k, cap, n_table)]
+        nodes = mask_nodes(torch, table, live, n, k, gen)
+        err["neighbor_masks"] = max(err["neighbor_masks"],
+                                    masks_err(N, table, nodes, live, k, index))
+        n_checks += 1
+        del nodes
+    tables.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"phase 5 main-path shapes: {n_checks} checks over "
@@ -1513,12 +1670,14 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
 
 def wrapper_modules():
     """The modules whose wrappers count kernel launches, bar limb_sort:
-    the rank search, the extraction and the distinct reduce."""
+    the rank search, the extraction, the distinct reduce and the
+    neighbour masks."""
     from gatb_core_tpu_torch.ops import kmer_ops as K
+    from gatb_core_tpu_torch.ops import neighbor_ops as N
     from gatb_core_tpu_torch.ops import rank_search as R
     from gatb_core_tpu_torch.ops import sortops as T
 
-    return R, K, T
+    return R, K, T, N
 
 
 def launch_counts(S) -> tuple:
@@ -1896,7 +2055,7 @@ def phase_postsolid_bench(tally, S, bench_path: str, truth, card: str):
     graph, got = tally.counted(S, "phase 9a bench graph", lambda: Graph.create(
         bank=bench_path, kmer_size=31, abundance_min=3, output=None,
         bloom_kind="neighbor", debloom_kind="cascading", mphf_kind="none",
-        build_branching=True, superbatch_rows=1 << 22), path=GRAPH_KERNELS)
+        build_branching=True, superbatch_rows=1 << 22), path=BUILD_KERNELS)
     wall = time.time() - t0
     check(got["rank_index"] == 1, "9a: the table's index not built once")
     check(rank_candidates_err(graph) == 0,
@@ -1948,7 +2107,7 @@ def phase_postsolid_k63(tally, S, k63_path: str, card: str):
     graph, got = tally.counted(S, "phase 9b k=63 graph", lambda: Graph.create(
         bank=k63_path, kmer_size=k, abundance_min=2, output=None,
         bloom_kind="neighbor", debloom_kind="cascading", mphf_kind="none",
-        build_branching=True), path=GRAPH_KERNELS)
+        build_branching=True), path=BUILD_KERNELS)
     wall = time.time() - t0
     check(got["rank_index"] == 1, "9b: the table's index not built once")
     check(rank_candidates_err(graph) == 0,
@@ -2009,7 +2168,7 @@ def postsolid_breakdown(torch, R, graph, nodes, card: str) -> None:
     (CUDA events, median after warm-up): the Bloom build over the whole
     table, then for one chunk of ``nodes`` the candidates, the Bloom
     probe, the rank search and the dedup of the hits, and the adjacency
-    step as a whole."""
+    step (one neighbor_masks launch) beside the chain it replaces."""
     from gatb_core_tpu_torch.collections.bloom import _bloom_build
     from gatb_core_tpu_torch.debruijn.graph import _adjacency_kernel
     from gatb_core_tpu_torch.kmer.debloom import _dedup_rows
@@ -2039,13 +2198,20 @@ def postsolid_breakdown(torch, R, graph, nodes, card: str) -> None:
     adj_ms, _ = time_ms(
         torch, lambda t: _adjacency_kernel(t, table, 31, n, index), nodes,
         warm=1, reps=3, fresh=False)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device="cuda")
+    chain_ms, _ = time_ms(
+        torch, lambda t: (R.rank_rows(table, as_rows(neighbor_candidates(
+            t, 31).reshape(-1, 2)), n, index=index)[1].reshape(-1, 8)
+            .to(torch.int32) * weights).sum(dim=1).to(torch.uint8), nodes,
+        warm=1, reps=3, fresh=False)
     log(f"phase 9c breakdown: Bloom build over {n} nodes ({b.size_bits} "
         f"bits, {b.n_hash} hashes, kind {b.kind}) {build_ms:.3f} ms; one "
         f"sweep step of {len(nodes)} nodes: neighbor_candidates "
         f"{cand_ms:.3f} ms, Bloom probe of {len(flat)} candidates "
         f"{probe_ms:.3f} ms, rank_rows {rank_ms:.3f} ms, dedup of "
         f"{int(hit.sum())} hits (sort + reduce) {dedup_ms:.3f} ms; one "
-        f"adjacency step (candidates + rank_rows + pack) {adj_ms:.3f} ms; "
+        f"adjacency step (neighbor_masks) {adj_ms:.3f} ms, the chain it "
+        f"replaces (candidates + rank_rows + pack) {chain_ms:.3f} ms; "
         f"{card}")
 
 
@@ -2075,10 +2241,13 @@ def phase_postsolid_stress(tally, S, R, stress_fold, card: str):
     init_s = []
     t0 = time.time()
     graph, got = tally.counted(S, "phase 9c stress graph", build,
-                               path=GRAPH_KERNELS)
+                               path=BUILD_KERNELS)
     wall = time.time() - t0
-    check(got["rank_rows"] == 2 * -(-29_999_950 // sweep_chunk(29_999_950)),
-          "9c: rank_rows is not one launch per sweep chunk and stage")
+    chunks = -(-29_999_950 // sweep_chunk(29_999_950))
+    check(got["rank_rows"] == chunks,
+          "9c: rank_rows is not one launch per debloom sweep chunk")
+    check(got["neighbor_masks"] == chunks,
+          "9c: neighbor_masks is not one launch per adjacency sweep chunk")
     check(got["rank_index"] == 1, "9c: the table's index not built once")
     peak = torch.cuda.max_memory_allocated() / 2**20
     info = graph.get_info()
@@ -2296,7 +2465,7 @@ def phase_tools(tally, S, torch, bench_path: str, truth, stress, tmp: str,
         t0 = time.time()
         stats, got_k = tally.counted(
             S, "phase 15a check_graph", lambda: check_graph(graph),
-            path=("rank_rows",))
+            path=("neighbor_masks",))
         torch.cuda.synchronize()
         done("check_graph", t0)
         t0 = time.time()
@@ -2404,7 +2573,7 @@ def phase_tools(tally, S, torch, bench_path: str, truth, stress, tmp: str,
             proc.communicate()
         pool.shutdown(wait=True)
     os.remove(bag_path)
-    # the stress graph (phase 9c) holds its adjacency: no rank_rows; its
+    # the stress graph (phase 9c) holds its adjacency: no launch; its
     # device-time share under torch.profiler, the card to itself again
     t0 = time.time()
     (got_s, s_wall, s_dev), got_sk = tally.counted(
@@ -2412,8 +2581,8 @@ def phase_tools(tally, S, torch, bench_path: str, truth, stress, tmp: str,
             torch, lambda: check_graph(stress)), path=())
     s_all = time.time() - t0
     adj = stress._adjacency
-    check(got_sk["rank_rows"] == 0,
-          "15: check_graph on the stress graph launched rank_rows")
+    check(got_sk["rank_rows"] == 0 and got_sk["neighbor_masks"] == 0,
+          "15: check_graph on the stress graph launched a kernel")
     check(got_s["checksumBranching"] == stress.checksum_branching()
           and got_s["nbSuccessors"] == int(popcount4(adj & 0x0F).sum(
               dtype=np.int64))
@@ -2430,7 +2599,7 @@ def phase_tools(tally, S, torch, bench_path: str, truth, stress, tmp: str,
         + "; done at (s from the phase's start) "
         + ", ".join(f"{k} {v:.1f}" for k, v in at.items())
         + f"; stress check_graph ({stress.nb_nodes} nodes, adjacency held, "
-        f"no rank_rows) {s_wall:.3f} s wall under the profiler, device "
+        f"no launch) {s_wall:.3f} s wall under the profiler, device "
         f"{s_dev:.4f} s (share {s_dev / s_wall:.3f}), {s_all:.1f} s with "
         f"the profiler's start and read-out; phase "
         f"{time.time() - t_phase:.1f} s; {card}")
@@ -2955,7 +3124,7 @@ def phase_simplify(tally, S, name: str, tmp: str, card: str):
     t0 = time.time()
     graph, got_create = tally.counted(
         S, f"phase 12{name} create", lambda: Graph.create(
-            bank=path, kmer_size=k, abundance_min=2), path=GRAPH_KERNELS)
+            bank=path, kmer_size=k, abundance_min=2), path=BUILD_KERNELS)
     create_s = time.time() - t0
     os.remove(path)
     n = graph.nb_nodes
@@ -4099,10 +4268,13 @@ def main() -> int:
     build_all()
     err = phase_kernels(torch, S)
     err["rank_rows"] = phase_rank_kernel(torch, S, R)
+    err["neighbor_masks"] = phase_masks_kernel(torch)
     err.update(phase_count_kernels(torch))
     times, err_t = phase_timing(torch, S, card)
     times["rank_rows"], err_t["rank_rows"] = phase_rank_timing(torch, S, R,
                                                                card)
+    times["neighbor_masks"], err_t["neighbor_masks"] = phase_masks_timing(
+        torch, card)
     count_times, count_errs = phase_count_timing(torch, card)
     times.update(count_times)
     err_t.update(count_errs)

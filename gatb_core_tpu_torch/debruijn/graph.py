@@ -45,7 +45,8 @@ from ..kmer.debloom import (BloomCfpContainer, CascadeCFP, DebloomResult,
 from ..kmer.model import canonical, kmer_to_string, string_to_kmer
 from ..misc import time_info
 from ..ops.kmer_ops import kmers_to_py, nb_limbs, py_to_limbs
-from ..ops.neighbor_ops import neighbor_candidates
+from ..ops.neighbor_ops import neighbor_candidates, neighbor_masks
+from ..ops.rank_search import as_rows
 from ..storage import hdf5 as storage_mod
 from ..storage.hdf5 import (STATE_ADJACENCY_DONE, STATE_BLOOM_DONE,
                             STATE_BRANCHING_DONE, STATE_DEBLOOM_DONE,
@@ -56,29 +57,16 @@ from ..storage.hdf5 import (STATE_ADJACENCY_DONE, STATE_BLOOM_DONE,
 def _adjacency_kernel(nodes: torch.Tensor, table: torch.Tensor, k: int,
                       n_table=None, index=None) -> torch.Tensor:
     """8-bit adjacency masks for a batch of nodes against the solid table:
-    the 8 neighbor candidates of every node, one rank search
-    (ops/sortops.rank_join_traced, through the table's ``index`` where the
-    caller holds one) and a pack of the 8 found bits. The reference probes
-    its membership oracle per neighbor (Graph.cpp:3508-3610). nodes:
-    (N, W) limbs; table: (C, W) limbs, the first ``n_table`` rows live.
-    Returns (N,) uint8 on the nodes' device."""
+    the membership of each node's 8 neighbour candidates, packed
+    (``ops.neighbor_ops.neighbor_masks``: one kernel launch on the card,
+    through the table's ``index`` where the caller holds one). The
+    reference probes its membership oracle per neighbor
+    (Graph.cpp:3508-3610). nodes: (N, W) limbs; table: (C, W) limbs, the
+    first ``n_table`` rows live. Returns (N,) uint8 on the nodes' device."""
     if n_table is None:
         n_table = table.shape[0]
-    cands = neighbor_candidates(nodes, k)      # (N, 8, W)
-    return _candidate_masks(cands, table, n_table, index)
-
-
-def _candidate_masks(cands: torch.Tensor, table: torch.Tensor, n_table,
-                     index=None) -> torch.Tensor:
-    """The masks of ``_adjacency_kernel`` from its (N, 8, W) candidates."""
-    from ..ops.sortops import rank_join_traced
-
-    n = cands.shape[0]
-    _, found = rank_join_traced(table, cands.reshape(n * 8, -1), n_table,
-                                index=index)
-    weights = 1 << torch.arange(8, dtype=torch.int32, device=found.device)
-    return (found.reshape(n, 8).to(torch.int32) * weights[None, :]) \
-        .sum(dim=1).to(torch.uint8)
+    return neighbor_masks(as_rows(nodes), as_rows(table), n_table, k,
+                          index=index)
 
 
 class Graph:
@@ -442,9 +430,8 @@ class Graph:
         with time_info.span("query.staging"):
             q = rows_to_device(self._as_batch(nodes), self.device)
         with time_info.span("query.candidates"):
-            cands = neighbor_candidates(q, self._k)
-        masks = _candidate_masks(cands, self._padded_table(), self._set.n,
-                                 self._set.index)
+            masks = neighbor_masks(q, self._padded_table(), self._set.n,
+                                   self._k, index=self._set.index)
         with time_info.span("query.fetch"):
             return masks.cpu().numpy()
 

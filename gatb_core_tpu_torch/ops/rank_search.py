@@ -61,6 +61,10 @@ def _lib() -> ctypes.CDLL:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.rank_rows.argtypes = [vp, vp, vp, vp, i, vp, vp, vp, ll, ll, i, vp]
     lib.rank_rows.restype = ctypes.c_int
+    # the neighbour masks of ops/neighbor_ops.py, in the same source
+    lib.neighbor_masks.argtypes = [vp, vp, vp, vp, vp, i, vp, ll, ll, i, i,
+                                   vp]
+    lib.neighbor_masks.restype = ctypes.c_int
     return lib
 
 
@@ -168,6 +172,24 @@ def held_index(table: torch.Tensor, n_table: int,
     return index
 
 
+def index_args(table: torch.Tensor, n_table: int,
+               index: RankIndex | None = None) -> tuple:
+    """The index arguments of a kernel launch on ``table``: (index rows,
+    level offsets, level lengths, level count) of the held or a transient
+    ``RankIndex`` at the widths the kernels walk; the table and no level
+    at any other, where the binary search reads no index."""
+    if table.shape[1] not in KERNEL_WIDTHS:
+        return table, None, None, 0
+    index = held_index(table, n_table, index)
+    return (index.rows, *index._c_levels, len(index.lengths))
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy where its storage is off 16-byte alignment: the
+    kernels load rows as 8- and 16-byte vectors."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def rank_rows(table: torch.Tensor, queries: torch.Tensor, n_table: int,
               index: RankIndex | None = None):
     """Rank and membership of query rows in a sorted distinct-row table.
@@ -194,17 +216,8 @@ def rank_rows(table: torch.Tensor, queries: torch.Tensor, n_table: int,
     found = torch.empty((q,), dtype=torch.bool, device=queries.device)
     if q == 0:
         return rank, found
-    if w in KERNEL_WIDTHS:
-        index = held_index(table, n_table, index)
-        rows, (offsets, lengths) = index.rows, index._c_levels
-        count = len(index.lengths)
-    else:                       # the binary search reads no index
-        rows, offsets, lengths, count = table, None, None, 0
-    # the kernel loads rows as 8- and 16-byte vectors
-    if table.data_ptr() % 16:
-        table = table.clone()
-    if queries.data_ptr() % 16:
-        queries = queries.clone()
+    rows, offsets, lengths, count = index_args(table, n_table, index)
+    table, queries = aligned(table), aligned(queries)
     with torch.cuda.device(queries.device):
         stream = ctypes.c_void_p(
             torch.cuda.current_stream(queries.device).cuda_stream)

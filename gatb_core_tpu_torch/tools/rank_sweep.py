@@ -1,9 +1,10 @@
-"""Time ``rank_rows`` at the shapes of the port's main path on one CUDA card.
+"""Time ``rank_rows`` and ``neighbor_masks`` at the main path's shapes.
 
     python gatb_core_tpu_torch/tools/rank_sweep.py [--tree DIR]
 
-Shapes (tables and queries made on the card from fixed seeds, so two runs
-on one card see the same inputs; ``chip_smoke.py`` times the same four):
+Shapes of ``rank_rows`` on one CUDA card (tables and queries made on the
+card from fixed seeds, so two runs on one card see the same inputs;
+``chip_smoke.py`` times the same four):
 
   a2, a4  8 x 2^20 queries, half drawn from the table and half random, in
           random order, on a table of 2^20 random rows of 2 / 4 limbs;
@@ -17,19 +18,33 @@ on one card see the same inputs; ``chip_smoke.py`` times the same four):
           candidates on the canonical 63-mers of a random 523,456 bp genome
           (523,394 windows, the size of the k=63 graph of ``chip_smoke.py``).
 
-For each: the kernel with the table's index already built (``ms``), the
-index build (``index_ms``), the one-shot call that builds a transient
-index (``one_shot_ms``), the plain version (``plain_ms``) and, at 1-2
-limbs, ``torch.searchsorted`` on int64 keys (``library_ms``, lower bound
-only); CUDA events, median after warm-up. Every result is held against the
-plain version's, the found rows' ranks against the lower bound of
-``torch.searchsorted`` (``library_err``, the rows that differ), and a
+and ``neighbor_masks`` (ops/neighbor_ops) at two shapes on the stress table:
+
+  q       a query batch: 71,000 nodes (a Dispatcher group of 1,000 reads
+          of 101 bp at k = 31) in random order, 6 in 7 present;
+  s       the adjacency sweep step: the first 2^21 sorted nodes.
+
+For each rank shape: the kernel with the table's index already built
+(``ms``), the index build (``index_ms``), the one-shot call that builds a
+transient index (``one_shot_ms``), the plain version (``plain_ms``) and,
+at 1-2 limbs, ``torch.searchsorted`` on int64 keys (``library_ms``, lower
+bound only); CUDA events, median after warm-up. Every result is held
+against the plain version's, the found rows' ranks against the lower bound
+of ``torch.searchsorted`` (``library_err``, the rows that differ), and a
 digest of the ranks is printed so that two trees' runs can be compared.
-One JSON line per shape; the exit code is 1 if any shape disagreed.
+For each mask shape: the kernel through the held index (``ms``), the chain
+it replaces (``neighbor_candidates``, ``rank_rows``, the pack: ``chain_ms``),
+``rank_rows`` alone on the same 8 N candidates (``rank_rows_ms``), the
+same calls on the host's clock with a synchronise (``*_wall_ms``), and the
+bound: a node's row read, 8 table rows read and a byte written, over
+3.35 TB/s (``bound_ms``); the kernel's masks held against the chain's and
+the plain version's. One JSON line per shape; the exit code is 1 if any
+rank shape disagreed with ``torch.searchsorted``.
 
 ``--tree DIR`` times the package of another checkout (a git-archive copy
 of an earlier commit): where that tree has no ``RankIndex``, its kernel is
-timed as it comes, as ``one_shot_ms``.
+timed as it comes, as ``one_shot_ms``; where it has no ``neighbor_masks``,
+only the chain and ``rank_rows`` are timed at the mask shapes.
 """
 
 from __future__ import annotations
@@ -39,12 +54,15 @@ import hashlib
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
 K31_GENOME = 30_000_000
 K63_GENOME = 523_456
 STRESS_CHUNK = 1 << 21
+QUERY_NODES = 71_000
+PEAK_BYTES_S = 3.35e12              # HBM3 of one H100 SXM (data sheet)
 
 
 def event_ms(torch, fn, warm: int = 2, reps: int = 7) -> float:
@@ -59,6 +77,20 @@ def event_ms(torch, fn, warm: int = 2, reps: int = 7) -> float:
         torch.cuda.synchronize()
         if r >= warm:
             times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def wall_ms(torch, fn, warm: int = 2, reps: int = 7) -> float:
+    """Median host-clock time of ``fn()`` and a synchronise, after
+    ``warm`` calls, with the card idle before each."""
+    times = []
+    for r in range(warm + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if r >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
 
@@ -214,6 +246,61 @@ def measure(torch, R, table, queries) -> dict:
     return out
 
 
+def mask_shapes(torch):
+    """Yield (name, table, nodes) for the neighbour masks: q and s on the
+    stress table (shape b's)."""
+    table = genome_rows(torch, 31, K31_GENOME, 11)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(71)
+    pick = torch.randint(0, table.shape[0], (QUERY_NODES,),
+                         device="cuda", generator=gen)
+    nodes = table[pick]
+    absent = mixed_queries(torch, table, QUERY_NODES, gen, k=31)
+    nodes[::7] = absent[::7]
+    yield "q", table, nodes.contiguous()
+    yield "s", table, table[:STRESS_CHUNK]
+
+
+def measure_masks(torch, R, N, table, nodes, k: int) -> dict:
+    """The times of one mask shape (see the module's note); the kernel's
+    masks differ from the chain's or the plain version's: raises."""
+    n, w = table.shape
+    m = nodes.shape[0]
+    index = R.RankIndex(table, n)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device="cuda")
+    cands = R.as_rows(N.neighbor_candidates(nodes, k).reshape(-1, w))
+
+    def chain():
+        c = R.as_rows(N.neighbor_candidates(nodes, k).reshape(-1, w))
+        _, found = R.rank_rows(table, c, n, index=index)
+        return (found.reshape(m, 8).to(torch.int32) * weights).sum(dim=1) \
+            .to(torch.uint8)
+
+    def rank_alone():
+        return R.rank_rows(table, cands, n, index=index)
+
+    out = {"w": w, "n_table": n, "nodes": m,
+           "bound_ms": (m * w * 4 + 8 * m * w * 4 + m) / PEAK_BYTES_S * 1e3}
+    want = chain()
+    fns = {"chain": chain, "rank_rows": rank_alone}
+    if hasattr(N, "neighbor_masks"):
+        def fused():
+            return N.neighbor_masks(nodes, table, n, k, index=index)
+
+        if not (torch.equal(fused(), want) and torch.equal(
+                N.neighbor_masks_plain(nodes, table, n, k, index), want)):
+            raise RuntimeError(f"neighbor_masks differs from the chain or "
+                               f"its plain version at {out}")
+        fns = {"": fused, **fns}
+    for name, fn in fns.items():
+        key = f"{name}_ms" if name else "ms"
+        out[key] = event_ms(torch, fn)
+        out[key.replace("ms", "wall_ms")] = wall_ms(torch, fn)
+    out["digest"] = digest(want)
+    out["nonzero"] = int((want != 0).sum())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -226,17 +313,21 @@ def main() -> int:
         print("rank_sweep: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.tree))
+    from gatb_core_tpu_torch.ops import neighbor_ops as N
     from gatb_core_tpu_torch.ops import rank_search as R
-    from gatb_core_tpu_torch.ops.neighbor_ops import neighbor_candidates
 
     print(f"rank_sweep: tree {os.path.abspath(args.tree)}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     bad = 0
-    for name, table, queries in shapes(torch, neighbor_candidates):
+    for name, table, queries in shapes(torch, N.neighbor_candidates):
         res = measure(torch, R, table, queries)
         bad += bool(res["library_err"])
         print(json.dumps({"shape": name, **res}), flush=True)
         del queries
+    for name, table, nodes in mask_shapes(torch):
+        res = measure_masks(torch, R, N, table, nodes, 31)
+        print(json.dumps({"shape": name, **res}), flush=True)
+        del nodes
     return 1 if bad else 0
 
 

@@ -260,6 +260,138 @@ def test_rank_rows_walks_a_held_index(cuda, w):
         R.rank_rows(table, queries, live - 1, index=index)
 
 
+NEIGHBOR_KS = [11, 16, 17, 31, 32, 33, 63, 65, 95, 111, 127]
+
+
+def _kmer_rows(k, n, g, device):
+    """n rows of k-mers drawn at random (limb 0 holds only the k-mer's
+    bits), not from any genome: mostly absent nodes."""
+    w = (k + 15) // 16
+    x = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
+                      generator=g)
+    bits = 2 * k - 32 * (w - 1)
+    if bits < 32:
+        x[:, 0] &= (1 << bits) - 1
+    return x.to(device)
+
+
+@pytest.mark.parametrize("k", NEIGHBOR_KS)
+def test_neighbor_masks_matches_plain(cuda, k):
+    """The kernel against its plain version on the CPU: W 1-8, the index's
+    walk (W 1, 2, 3, 4, 8) and the binary search (5-7), with the table's
+    index held and with a transient one; a padded table, fewer live rows,
+    one and none; absent nodes and the all-ones row; one node, no node;
+    storage off 16-byte alignment; one launch a call."""
+    from gatb_core_tpu_torch.ops import neighbor_ops as N
+    from gatb_core_tpu_torch.tools.rank_sweep import genome_rows
+
+    table = genome_rows(torch, k, 20_000, k, device=cuda)
+    live, w = table.shape
+    padded = torch.cat([table, torch.full((11, w), -1, dtype=torch.int32,
+                                          device=cuda)])
+    g = torch.Generator().manual_seed(k)
+    nodes = torch.cat([
+        table[torch.randperm(live, generator=g).to(cuda)],
+        _kmer_rows(k, 700, g, cuda),
+        torch.full((1, w), -1, dtype=torch.int32, device=cuda)])
+    cpu_nodes, cpu_padded = nodes.cpu(), padded.cpu()
+    N.reset_launches()
+    R.reset_launches()
+    for n in (live, live - 3, 1, 0):
+        want = N.neighbor_masks_plain(cpu_nodes, cpu_padded, n, k)
+        if n == live:
+            assert (want[:live] != 0).float().mean() > 0.9
+        for index in (R.RankIndex(padded, n), None):
+            got = N.neighbor_masks(nodes, padded, n, k, index=index)
+            assert got.is_cuda and got.dtype == torch.uint8
+            assert torch.equal(got.cpu(), want), n
+    assert N.launches["neighbor_masks"] == 8
+    assert R.launches["rank_rows"] == 0
+    assert (w, k, padded.shape[0], live, len(nodes)) in \
+        N.launch_shapes["neighbor_masks"]
+    want = N.neighbor_masks_plain(cpu_nodes, cpu_padded, live, k)
+    one = N.neighbor_masks(nodes[:1].contiguous(), padded, live, k)
+    assert torch.equal(one.cpu(), want[:1])
+    none = N.neighbor_masks(nodes[:0], padded, live, k)
+    assert none.shape == (0,) and N.launches["neighbor_masks"] == 9
+    # storage off 16-byte alignment: the wrapper hands the kernel copies
+    shifted = []
+    for x in (nodes, padded):
+        flat = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)
+        shifted.append(flat[1:].view_as(x))
+        shifted[-1].copy_(x)
+    got = N.neighbor_masks(shifted[0], shifted[1], live, k)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_neighbor_masks_at_the_query_shape(cuda):
+    """A Dispatcher group's 71,000 k=31 nodes, ~6/7 present, on a table of
+    ~1M rows through its held index, against the plain version on the
+    CPU; the graph sweep's shape (every node of the table)."""
+    from gatb_core_tpu_torch.ops import neighbor_ops as N
+    from gatb_core_tpu_torch.tools.rank_sweep import genome_rows
+
+    table = genome_rows(torch, 31, 1_000_030, 3, device=cuda)
+    live = table.shape[0]
+    assert live > 990_000
+    index = R.RankIndex(table, live)
+    g = torch.Generator().manual_seed(71)
+    nodes = table[torch.randint(0, live, (71_000,), generator=g).to(cuda)]
+    nodes[::7] = _kmer_rows(31, len(nodes[::7]), g, cuda)
+    cpu_table = table.cpu()
+    cpu_index = R.RankIndex(cpu_table, live)
+    N.reset_launches()
+    got = N.neighbor_masks(nodes, table, live, 31, index=index)
+    assert N.launches["neighbor_masks"] == 1
+    want = N.neighbor_masks_plain(nodes.cpu(), cpu_table, live, 31,
+                                  cpu_index)
+    assert torch.equal(got.cpu(), want)
+    sweep = N.neighbor_masks(table, table, live, 31, index=index)
+    want = N.neighbor_masks_plain(cpu_table, cpu_table, live, 31, cpu_index)
+    assert torch.equal(sweep.cpu(), want) and (want != 0).all()
+
+
+def test_graph_masks_on_card_launch_one_kernel(cuda, monkeypatch):
+    """adjacency_masks and the single-device adjacency sweep on the card
+    equal a CPU Graph's: one neighbor_masks launch a call and one a sweep
+    chunk, no rank_rows launch and no neighbor_candidates call."""
+    from gatb_core_tpu_torch import Graph
+    from gatb_core_tpu_torch.debruijn import graph as graph_mod
+    from gatb_core_tpu_torch.ops import neighbor_ops as N
+
+    rng = np.random.default_rng(17)
+    genome = "".join(rng.choice(list("ACGT"), size=6000))
+    reads = [genome[i:i + 120] for i in range(0, 5880, 7)]
+    kw = dict(kmer_size=31, abundance_min=2, batch_reads=64,
+              superbatch_rows=1 << 16, mphf_kind="none",
+              build_branching=False)
+    a = Graph.create(BankStrings(*reads), device="cuda", **kw)
+    b = Graph.create(BankStrings(*reads), device="cpu", **kw)
+    assert a._adjacency is None and a.nb_nodes > 3000
+    absent = a.solid_limbs[:300].copy()
+    absent[:, -1] ^= 1
+    q = np.concatenate([a.solid_limbs[::3], absent])
+    want = b.adjacency_masks(q)
+    sweep_want = b.precompute_adjacency(chunk=1000)
+
+    def no_candidates(*args, **kwargs):
+        raise AssertionError("neighbor_candidates ran on the masks' path")
+
+    monkeypatch.setattr(N, "neighbor_candidates", no_candidates)
+    monkeypatch.setattr(graph_mod, "neighbor_candidates", no_candidates)
+    N.reset_launches()
+    R.reset_launches()
+    for _ in range(3):
+        assert np.array_equal(a.adjacency_masks(q), want)
+    assert N.launches["neighbor_masks"] == 3
+    assert (2, 31, a.nb_nodes, a.nb_nodes, len(q)) in \
+        N.launch_shapes["neighbor_masks"]
+    got = a.precompute_adjacency(chunk=1000)
+    assert np.array_equal(got, sweep_want)
+    assert N.launches["neighbor_masks"] == 3 + -(-a.nb_nodes // 1000)
+    assert R.launches["rank_rows"] == 0
+
+
 @pytest.mark.parametrize("k", [31, 63])
 def test_graph_on_card_matches_cpu(cuda, k):
     """Bloom, debloom, adjacency and branching on the card (kernels)
@@ -271,10 +403,15 @@ def test_graph_on_card_matches_cpu(cuda, k):
     reads = [genome[i:i + 120] for i in range(0, 5880, 7)]
     kw = dict(kmer_size=k, abundance_min=2, batch_reads=64,
               superbatch_rows=1 << 16, mphf_kind="none")
+    from gatb_core_tpu_torch.ops import neighbor_ops as N
+
     for name in R.launches:
         R.launches[name] = 0
+    N.reset_launches()
     a = Graph.create(BankStrings(*reads), device="cuda", **kw)
-    assert R.launches["rank_rows"] >= 2
+    # the debloom probe's rank search, and the adjacency sweep's masks
+    assert R.launches["rank_rows"] >= 1
+    assert N.launches["neighbor_masks"] >= 1
     b = Graph.create(BankStrings(*reads), device="cpu", **kw)
     assert np.array_equal(a.solid_limbs, b.solid_limbs)
     assert np.array_equal(a._adjacency, b._adjacency)

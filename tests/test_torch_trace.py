@@ -375,10 +375,11 @@ SLACK_NS = 8_000_000
 def test_spans_and_device_events_share_a_clock(cuda):
     """Under the profiler (CUDA activity only, as the benchmark traces):
     every ``extract_planes`` kernel lies inside its ``count`` span and
-    starts after the first ``count.dispatch`` opened; the ``rank_rows``
-    kernel of each query call (the last two launched, by correlation
-    id, so paired with no clock) lies inside the call's root span. Both
-    within ``SLACK_NS``. Its profile must be the first with CUDA
+    starts after the first ``count.dispatch`` opened; the kernel of each
+    query call (the last ``rank_rows`` launched for ``node_index`` and the
+    last ``neighbor_masks`` for ``adjacency_masks``, by correlation id, so
+    paired with no clock) lies inside the call's root span. Both within
+    ``SLACK_NS``. Its profile must be the first with CUDA
     activity in its process: run the file alone, as the module's
     docstring does."""
     from torch.profiler import ProfilerActivity, profile
@@ -407,9 +408,8 @@ def test_spans_and_device_events_share_a_clock(cuda):
                    key=lambda sp: sp.t0_ns)
     assert [sp.name for sp in calls] == ["graph.node_index",
                                          "graph.adjacency_masks"]
-    ranks = sorted((e for e in events if "rank_rows" in e[0]),
-                   key=lambda e: e[1])[-2:]
-    assert len(ranks) == 2
-    for (_, _, s, e), sp in zip(ranks, calls):
+    kernels = [max((e for e in events if name in e[0]), key=lambda e: e[1])
+               for name in ("rank_rows", "neighbor_masks")]
+    for (_, _, s, e), sp in zip(kernels, calls):
         assert sp.t0_ns - SLACK_NS <= s and e <= sp.t1_ns + SLACK_NS, \
             (sp.name, s - sp.t0_ns, sp.t1_ns - e)
