@@ -184,9 +184,10 @@ class Graph:
                     raise rep_box[1]
                 rep_box[0].save(storage)
 
-        with time_info.span("graph.build", sync=True):
+        with time_info.span("graph.build", sync=True) as sp:
             graph = cls(kmer_size, result.solid_kmers, result.solid_counts,
                         storage, result.info, mesh=mesh, device=device)
+            sp.count(limbs=graph._w, nodes=graph.nb_nodes)
             graph.build_postsolid(bloom_kind=bloom_kind,
                                   debloom_kind=debloom_kind,
                                   mphf_kind=mphf_kind,

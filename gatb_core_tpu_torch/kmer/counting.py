@@ -784,7 +784,9 @@ class SortingCount(Algorithm):
     joins the processor vector as its own sweep, receiving every pass's
     kmer-complete table with full lifecycle calls. ``run()`` records the
     ``count`` span, with the superbatches dispatched and the ``replays``
-    among them (dispatched again after an overflow) as its counts."""
+    among them (dispatched again after an overflow), the row width in
+    ``limbs``, the k-mer ``windows`` counted and the ``distinct`` rows
+    after the reduce as its counts."""
 
     span = "count"
 
@@ -1347,6 +1349,7 @@ class SortingCount(Algorithm):
             histogram.cutoff = amin
         histogram.nb_solids_after_cutoff = len(solid_counts)
         nb_distinct = int(sum(st.n for _, st in parts))
+        root.count(limbs=w, windows=kmers_nb_valid, distinct=nb_distinct)
 
         info = {
             "kmers_nb_distinct": nb_distinct,

@@ -238,6 +238,23 @@ def test_replays_are_counted():
     assert got.as_dict() == want.as_dict()
 
 
+@pytest.mark.parametrize("k", [31, 63])
+def test_count_and_build_counters(k):
+    """The ``count`` span counts its row width (``limbs``), the k-mer
+    ``windows`` counted and the ``distinct`` rows after the reduce;
+    ``graph.build`` its row width and ``nodes``: the info's numbers."""
+    seqs = _reads(k=k)
+    with T.recording():
+        g = _create(seqs, k=k)
+    got = _by_name(T.spans())
+    (count,), (build,) = got["count"], got["graph.build"]
+    w = (2 * k + 31) // 32
+    assert count.counts["limbs"] == build.counts["limbs"] == w
+    assert count.counts["windows"] == g.info["kmers_nb_valid"] > 0
+    assert count.counts["distinct"] == g.info["kmers_nb_distinct"] > 0
+    assert build.counts["nodes"] == g.nb_nodes == len(g.solid_counts)
+
+
 # (span, its parent's name, on the build's main thread)
 EXPECTED = [
     ("count", None, True),
