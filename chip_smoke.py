@@ -89,7 +89,13 @@ numpy ground truth computed here:
      one row, each call one launch; their times at the stress superbatch
      (1 and 3 passes) and at the fold's (2 x 2^26 rows, weighted) and the
      LSM chain's (2 x 2^25) reduce beside the plain versions and, for the
-     reduce, torch.unique_consecutive;
+     reduce, torch.unique_consecutive; solid_select (ops/solid_select)
+     against its plain version for 1 to 5 planes, 0 to 2^20 rows on and
+     off its 8192-row tile, with the histogram and without, a finite
+     range, histo_max past its shared bins, each call one launch; its
+     time at the human count's (2 x 109.5M rows) and the k 63 count's (4 x
+     95.5M) pass ends with their skew, its histogram launch alone, beside
+     its plain version and the numpy chain it replaces (host clock);
   2. bench bank: 200k x 150 bp reads of a 1 Mbp genome (seed 7, the
      generator of bench.make_dataset), k=31, abundance-min 3;
   3. multi-limb: 20k reads of the same generator, k=63 (W=4);
@@ -240,7 +246,8 @@ Phases 2-4 and 6-16 each run with the kernels' launch counters set to 0
 just before and read just after; every kernel of the phase's path must
 have launched in each (the three limb-sort kernels, extract_planes and
 run_reduce in the counts of phases 2-4, 6, 7, 13b and 14a and in each
-rank's bench count of 14b;
+rank's bench count of 14b, solid_select in the single-bank counts of
+phases 2-4, 6, 7 and 13b;
 bitonic_u64 and the two merge kernels in phase 8; rank_rows, neighbor_masks
 and the three limb-sort kernels in each part of phase 9 and in each
 ``Graph.create`` of phase 12, neighbor_masks exactly once per sweep chunk
@@ -288,11 +295,13 @@ KERNEL_SOURCE = {
     "neighbor_masks": "gatb_core_tpu_torch/ops/csrc/rank_search.cu",
     "extract_planes": "gatb_core_tpu_torch/ops/csrc/kmer_extract.cu",
     "run_reduce": "gatb_core_tpu_torch/ops/csrc/run_reduce.cu",
+    "solid_select": "gatb_core_tpu_torch/ops/csrc/solid_select.cu",
 }
-# rank_rows, neighbor_masks, extract_planes and run_reduce have no Pallas
-# original: they replace the jnp sort-join, the jnp neighbour candidates
-# with the sort-join, the jnp extraction (with the pass filter and the
-# sentinel encoding) and the jnp distinct reduce
+# rank_rows, neighbor_masks, extract_planes, run_reduce and solid_select
+# have no Pallas original: they replace the jnp sort-join, the jnp
+# neighbour candidates with the sort-join, the jnp extraction (with the
+# pass filter and the sentinel encoding), the jnp distinct reduce and the
+# host's numpy processor chain (histogram -> solidity -> collect)
 REPLACES = {
     "tile_sort": "gatb_core_tpu/ops/pallas_sort.py:150",
     "merge_partition": "gatb_core_tpu/ops/pallas_sort.py:204",
@@ -303,6 +312,8 @@ REPLACES = {
                       "gatb_core_tpu/ops/sortops.py:839",
     "extract_planes": "gatb_core_tpu/ops/kmer_ops.py:141",
     "run_reduce": "gatb_core_tpu/ops/sortops.py:559",
+    "solid_select": "gatb_core_tpu/kmer/count_processor.py:137 + "
+                    "gatb_core_tpu/kmer/histogram.py:31",
 }
 LIMB_KERNELS = ("tile_sort", "merge_partition", "merge_tiles",
                 "bitonic_u64")
@@ -314,6 +325,8 @@ GRAPH_KERNELS = SORT_KERNELS + ("rank_rows",)
 BUILD_KERNELS = GRAPH_KERNELS + ("neighbor_masks",)
 # a count: the extraction, the sort kernels and the distinct reduce
 COUNT_KERNELS = SORT_KERNELS + ("extract_planes", "run_reduce")
+# a single-bank count with the default processor chain: and the select
+SELECT_COUNT_KERNELS = COUNT_KERNELS + ("solid_select",)
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and
 # the float32 rate outside the tensor cores as the nearest published rate
 # for 32-bit compare work
@@ -1022,15 +1035,72 @@ def reduce_weights(torch, b: int, n: int, gen):
     return w[0] if b == 1 else w
 
 
+MAX_I32 = 2**31 - 1
+# the select at the main path's pass ends: (label, W, live rows, capacity,
+# share of the rows seen once, the solid rows' coverage) of the human
+# count (109.5M distinct k-mers, 23.2M solid) and the k 63 bank's (95.5M,
+# 8.1M solid), the benchmark's bank cells
+SELECT_SHAPES = (("chr14q_k31", 2, 109_500_000, 1 << 27, 0.788, 30),
+                 ("ecoli_k63", 4, 95_500_000, 1 << 27, 0.915, 75))
+
+
+def select_table(torch, w: int, n: int, cap: int, ones: float, cover: int,
+                 gen):
+    """A pass's distinct table on the card: (W, cap) random planes and
+    (cap,) counts, a share ``ones`` of the n live rows seen once, the
+    others Poisson(cover) and at least 2, the edges (0, the fetch's
+    254/255, histo_max and past it, the int32 maximum) among them, 0 past
+    n. The select reads no order, so the rows are left unsorted."""
+    planes = torch.randint(-2**31, MAX_I32, (w, cap), dtype=torch.int32,
+                           device="cuda", generator=gen)
+    rate = torch.full((n,), float(cover), device="cuda")
+    solid = torch.poisson(rate, generator=gen).clamp_(min=2)
+    once = torch.rand(n, device="cuda", generator=gen) < ones
+    counts = torch.zeros((cap,), dtype=torch.int32, device="cuda")
+    counts[:n] = torch.where(once, torch.ones_like(solid), solid).to(
+        torch.int32)
+    edges = torch.tensor([0, 254, 255, 10000, 10001, MAX_I32],
+                         dtype=torch.int32, device="cuda")
+    at = torch.arange(len(edges), device="cuda") * max(n // len(edges), 1)
+    counts[at[at < n]] = edges[:int((at < n).sum())]
+    return planes, counts
+
+
+def select_err(SS, planes, counts, n: int, lo: int, hi: int,
+               histo_max: int = 10000, with_bins: bool = True) -> int:
+    """max |kernel - plain| over solid_select's bins, rows and counts (1
+    where their shapes differ); the call must be one launch."""
+    import torch
+
+    bins = torch.zeros((histo_max + 1,), dtype=torch.int64,
+                       device=counts.device) if with_bins else None
+    ref_bins = bins.clone() if with_bins else None
+    before = SS.launches["solid_select"]
+    got = SS.solid_select(planes, counts, n, lo, hi, bins, histo_max)
+    check(SS.launches["solid_select"] == before + (n > 0),
+          "solid_select: not one launch a call")
+    ref = SS.solid_select_plain(planes, counts, n, lo, hi, ref_bins,
+                                histo_max)
+    e = 0
+    for a, b in list(zip(got, ref)) + ([(bins, ref_bins)] if with_bins
+                                       else []):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            e = max(e, 1)
+        elif a.numel():
+            e = max(e, max_abs_err(a, b))
+    return e
+
+
 def phase_count_kernels(torch) -> dict:
-    """extract_planes and run_reduce against their plain versions on the
-    card, bit for bit. Returns max |err| per kernel."""
+    """extract_planes, run_reduce and solid_select against their plain
+    versions on the card, bit for bit. Returns max |err| per kernel."""
     from gatb_core_tpu_torch.ops import kmer_ops as K
+    from gatb_core_tpu_torch.ops import solid_select as SS
     from gatb_core_tpu_torch.ops import sortops as T
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(515)
-    err = {"extract_planes": 0, "run_reduce": 0}
+    err = {"extract_planes": 0, "run_reduce": 0, "solid_select": 0}
     n_checks = 0
     # extraction: k at and off the limb boundaries, dense and masked, one
     # and three passes (every pass), reads shorter than k, L off a multiple
@@ -1070,6 +1140,19 @@ def phase_count_kernels(torch) -> dict:
             err["run_reduce"] = max(err["run_reduce"], reduce_err(
                 T, planes, inv, reduce_weights(torch, b, n, gen), n))
             n_checks += 1
+    # select: 1 to 5 planes, no row, one, a tile and one row past it, rows
+    # off the tile; the histogram or not, a finite range, histo_max past
+    # the kernel's shared bins and of one bin
+    for w in range(1, 6):
+        for n in (0, 1, 8192, 8193, 3 * 8192 + 5, 1 << 20):
+            cap = max(16, 1 << max(n - 1, 0).bit_length())
+            planes, counts = select_table(torch, w, n, cap, 0.8, 30, gen)
+            for lo, hi, histo_max, with_bins in (
+                    (2, MAX_I32, 10000, True), (1, 1, 10000, False),
+                    (255, 300, 20000, True), (3, MAX_I32, 1, True)):
+                err["solid_select"] = max(err["solid_select"], select_err(
+                    SS, planes, counts, n, lo, hi, histo_max, with_bins))
+                n_checks += 1
     torch.cuda.synchronize()
     log(f"phase 1 count kernels: {n_checks} inputs, max |kernel - plain| "
         f"{err}")
@@ -1156,6 +1239,69 @@ def phase_count_timing(torch, card: str):
     check(all(v == 0 for v in errs.values()),
           "timing: a count kernel disagrees with its plain version")
     return times, errs
+
+
+def phase_select_timing(torch, card: str):
+    """solid_select at the main path's pass ends (``SELECT_SHAPES``): the
+    kernel with the histogram at abundance-min 2 (n_solid read between
+    its launches, as the count does), its first launch alone (the
+    histogram), its plain version, and the numpy chain it replaces
+    (``CountProcessorHistogram`` -> ``CountProcessorSolidity`` ->
+    ``CountProcessorCollect`` over the table copied to the host, one run
+    on the host clock; its result held against the kernel's). Bound: the
+    bytes read once and written once, 4 W + 4 a live row and 4 W + 4 a
+    solid row. Returns ({"solid_select": the human shape's times}, {name:
+    max |kernel - plain|})."""
+    from gatb_core_tpu_torch.kmer.count_processor import (
+        CountProcessorChain, CountProcessorCollect, CountProcessorHistogram,
+        CountProcessorSolidity)
+    from gatb_core_tpu_torch.ops import solid_select as SS
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2020)
+    times, err = {}, 0
+    for label, w, n, cap, ones, cover in SELECT_SHAPES:
+        planes, counts = select_table(torch, w, n, cap, ones, cover, gen)
+        bins = torch.zeros((10001,), dtype=torch.int64, device="cuda")
+        ms, got = time_ms(torch, lambda y: SS.solid_select(
+            planes, y, n, 2, MAX_I32, bins, 10000), counts, fresh=False)
+        hist_ms, _ = time_ms(torch, lambda y: SS.solid_histogram(
+            y, n, bins, 10000), counts, fresh=False)
+        plain_ms, _ = time_ms(torch, lambda y: SS.solid_select_plain(
+            planes, y, n, 2, MAX_I32, bins, 10000), counts, fresh=False)
+        e = select_err(SS, planes, counts, n, 2, MAX_I32)
+        n_solid = got[0].shape[0]
+        kmers = planes[:, :n].T.contiguous().cpu().numpy().view(np.uint32)
+        c = counts[:n].cpu().numpy()
+        t0 = time.perf_counter()
+        hist, collect = CountProcessorHistogram(10000), CountProcessorCollect()
+        CountProcessorChain(hist, CountProcessorSolidity("sum", (2, MAX_I32)),
+                            collect).process_table(0, kmers, c[:, None], c)
+        rows, _, sums = collect.result(w)
+        chain_ms = (time.perf_counter() - t0) * 1e3
+        bins.zero_()
+        got = SS.solid_select(planes, counts, n, 2, MAX_I32, bins, 10000)
+        same = (np.array_equal(rows, got[0].cpu().numpy().view(np.uint32))
+                and np.array_equal(sums, got[1].cpu().numpy())
+                and np.array_equal(hist.histogram.bins,
+                                   bins.cpu().numpy().astype(np.uint64)))
+        e = max(e, int(not same))
+        b_ms, b_by = bound(n * (4 * w + 4) + n_solid * (4 * w + 4), 0)
+        log(f"time solid_select, {label}: {ms:.4f} ms, histogram alone "
+            f"{hist_ms:.4f} ms, plain {plain_ms:.4f} ms, the numpy chain "
+            f"it replaces {chain_ms:.1f} ms (host), bound {b_ms:.4f} ms by "
+            f"{b_by} ({w} planes x {n} rows of {cap}, {n_solid} solid; "
+            f"{card}); max |kernel - plain| {e}")
+        err = max(err, e)
+        if not times:
+            times["solid_select"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by, "chain_ms": chain_ms}
+        del planes, counts, bins, got, kmers, c, rows, sums, hist, collect
+    torch.cuda.empty_cache()
+    check(err == 0, "timing: solid_select disagrees with its plain version "
+          "or the numpy chain")
+    return times, {"solid_select": err}
 
 
 def sorted_table(torch, S, w: int, n: int, cap: int, gen):
@@ -1620,7 +1766,7 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
             n_checks += 1
             del x, ref
     # extract_planes: random reads of the launch's shape, the last pass
-    _, K, T, N = wrapper_modules()
+    _, K, T, N, SS = wrapper_modules()
     for k, L, r, nw, nv, cap, m, nb_passes in sorted(
             shapes["extract_planes"]):
         words, vmask, lengths = packed_batch(torch, r, L, k, gen, nv == 0)
@@ -1643,6 +1789,13 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
             T, planes, inv, reduce_weights(torch, b, n, gen), cap_out))
         n_checks += 1
         del planes, inv
+    # solid_select: a skewed table of the launch's shape
+    for w, n, cap, histo_max in sorted(shapes["solid_select"]):
+        planes, counts = select_table(torch, w, n, cap, 0.8, 30, gen)
+        err["solid_select"] = max(err["solid_select"], select_err(
+            SS, planes, counts, n, 2, MAX_I32, histo_max))
+        n_checks += 1
+        del planes, counts
     # neighbor_masks: a genome's k-mers of the launch's live rows under its
     # padded tail, and its index; nodes 6 in 7 present
     for w, k, cap, n_table, n in sorted(shapes["neighbor_masks"]):
@@ -1670,14 +1823,15 @@ def phase_shapes(torch, S, R, shapes: dict) -> dict:
 
 def wrapper_modules():
     """The modules whose wrappers count kernel launches, bar limb_sort:
-    the rank search, the extraction, the distinct reduce and the
-    neighbour masks."""
+    the rank search, the extraction, the distinct reduce, the neighbour
+    masks and the solid select."""
     from gatb_core_tpu_torch.ops import kmer_ops as K
     from gatb_core_tpu_torch.ops import neighbor_ops as N
     from gatb_core_tpu_torch.ops import rank_search as R
+    from gatb_core_tpu_torch.ops import solid_select as SS
     from gatb_core_tpu_torch.ops import sortops as T
 
-    return R, K, T, N
+    return R, K, T, N, SS
 
 
 def launch_counts(S) -> tuple:
@@ -1742,7 +1896,7 @@ def phase_bench(tally, tmp: str, S, count_kmers):
         write_reads(f, reads, 0)
     t0 = time.time()
     res, _ = tally.counted(S, "phase 2 bench", lambda: count_kmers(
-        path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 22), path=COUNT_KERNELS)
+        path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 22), path=SELECT_COUNT_KERNELS)
     wall = time.time() - t0
     SINGLE_S["bench count"] = wall
     info = res.info
@@ -1769,7 +1923,7 @@ def phase_k63(tally, tmp: str, S, count_kmers):
         write_reads(f, reads, 0)
     t0 = time.time()
     res, _ = tally.counted(S, "phase 3 k=63", lambda: count_kmers(
-        path, kmer_size=63, abundance_min=1), path=COUNT_KERNELS)
+        path, kmer_size=63, abundance_min=1), path=SELECT_COUNT_KERNELS)
     wall = time.time() - t0
     SINGLE_S["k=63 count"] = wall
     rows, cnts = truth_k63(reads)
@@ -1792,7 +1946,7 @@ def stress_count(tally, S, count_kmers, path: str, name: str, card: str,
     t0 = time.time()
     res, got = tally.counted(S, name, lambda: count_kmers(
         path, kmer_size=31, abundance_min=3, superbatch_rows=1 << 25,
-        nb_passes=1, **kw), path=COUNT_KERNELS)
+        nb_passes=1, **kw), path=SELECT_COUNT_KERNELS)
     wall = time.time() - t0
     SINGLE_S[name] = wall
     log(f"{name}: peak device memory allocated during the count "
@@ -1842,7 +1996,7 @@ def phase_lsm(tally, S, count_kmers, bench_path: str, bench_fold,
         res, _ = tally.counted(
             S, f"phase 6 LSM bench, {label}", lambda: count_kmers(
                 bench_path, kmer_size=31, abundance_min=3,
-                superbatch_rows=1 << 22, carry_accumulator=False, **kw), path=COUNT_KERNELS)
+                superbatch_rows=1 << 22, carry_accumulator=False, **kw), path=SELECT_COUNT_KERNELS)
         log(f"phase 6 LSM bench, {label}: count {time.time() - t0:.3f} s, "
             f"distinct {res.info['kmers_nb_distinct']}, solid "
             f"{res.info['kmers_nb_solid']}, passes "
@@ -1912,7 +2066,7 @@ def phase_dbgh5(tally, tmp: str, S, bench_path: str, truth):
     graph, _ = tally.counted(S, "phase 7 dbgh5", lambda: Graph.create(
         bank=bench_path, kmer_size=31, abundance_min=3, output=None,
         bloom_kind="none", debloom_kind="none", mphf_kind="none",
-        build_branching=False, superbatch_rows=1 << 22), path=COUNT_KERNELS)
+        build_branching=False, superbatch_rows=1 << 22), path=SELECT_COUNT_KERNELS)
     t_graph = time.time() - t0
     info = graph.get_info()
     check(graph.nb_nodes == int(solid.sum()) == info["nb_solid_kmers"]
@@ -3384,7 +3538,7 @@ def phase_linear_counter(tally, S, torch, reads, bench_path: str, tmp: str,
         LinearCounter, estimate_distinct_kmers)
 
     res, _ = tally.counted(S, "phase 13b count", lambda: count_kmers(
-        bench_path, kmer_size=31, abundance_min=1), path=COUNT_KERNELS)
+        bench_path, kmer_size=31, abundance_min=1), path=SELECT_COUNT_KERNELS)
     exact = len(res.solid_kmers)
     check(exact == 999_959, "phase 13b: distinct k-mers of the bench bank")
     lc = LinearCounter(200_000 * 121, device="cuda")
@@ -4276,6 +4430,9 @@ def main() -> int:
     times["neighbor_masks"], err_t["neighbor_masks"] = phase_masks_timing(
         torch, card)
     count_times, count_errs = phase_count_timing(torch, card)
+    times.update(count_times)
+    err_t.update(count_errs)
+    count_times, count_errs = phase_select_timing(torch, card)
     times.update(count_times)
     err_t.update(count_errs)
     phase_fetch(torch, card)

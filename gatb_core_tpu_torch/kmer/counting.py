@@ -22,9 +22,14 @@ partition is radix-binned, sorted and 453-way-merged
                         distinct reduce per superbatch into its own table;
                         the per-pass tables merge by size class
                         (_merge_smallest_pair), at most _MAX_LIVE_LSM live
-  host end of run:      the table is fetched (streamed in chunks on the
-                        fold path) and the CountProcessor chain
-                        (histogram -> solidity -> collect) runs over it
+  device, pass end:     the default CountProcessor chain (histogram ->
+                        solidity -> collect) as one kernel
+                        (ops/solid_select.py): the histogram's bins and
+                        the solid rows, which alone are copied to the host
+  host end of run:      with a caller's processor, custom solidity or an
+                        auto cutoff over several passes, the whole table
+                        is fetched (streamed in chunks on the fold path)
+                        and the numpy chain runs over it
 
 Every tensor lives on ``CountConfig.device`` (default ``"cuda"``). A CPU
 device runs the kernels' plain PyTorch twins; that is for tests, and
@@ -55,6 +60,7 @@ from ..ops.bitpack import ascii_to_codes_np
 from ..ops.kmer_ops import (extract_kmers, extract_planes, kmers_to_py,
                             nb_limbs, pack_valid, pack_words)
 from ..ops.limb_sort import merge_sorted_runs, sort_u32_limbs
+from ..ops.solid_select import solid_histogram, solid_select
 from ..ops.sortops import (SENTINEL, CountTable, _next_pow2, count_batch,
                            count_planes,
                            count_planes_multibank, count_sorted,
@@ -743,6 +749,71 @@ def _empty_host_table(w: int) -> _MaterialTable:
                           np.zeros((0,), np.int32))
 
 
+# the solidity kinds that, on one bank, are each lo <= count <= hi
+_DEVICE_KINDS = ("sum", "min", "max", "all", "one")
+
+
+class _DeviceChain:
+    """The default processor vector (histogram -> solidity -> collect) on
+    the device, for a kind of ``_DEVICE_KINDS``: at each pass end the
+    pass's table adds into the histogram's device bins and its solid rows
+    are compacted (``ops.solid_select``) and copied to pinned host memory
+    without blocking; ``result`` waits for the copies and brings the bins
+    over once. An auto cutoff (one pass only) is computed from the pass's
+    histogram before its select."""
+
+    def __init__(self, cfg: CountConfig, device):
+        self.cfg = cfg
+        self.histogram = Histogram(cfg.histo_max)
+        self.bins = torch.zeros((cfg.histo_max + 1,), dtype=I64,
+                                device=device)
+        self.cutoff = None if cfg.auto_cutoff else int(cfg.abundance_min)
+        self.copies: list = []      # ((rows, counts) on the host, event)
+
+    def _fetch_bins(self) -> None:
+        self.histogram.bins = self.bins.cpu().numpy().astype(np.uint64)
+
+    def end_pass(self, planes, counts, n: int) -> None:
+        cfg = self.cfg
+        bins = self.bins
+        if self.cutoff is None:
+            solid_histogram(counts, n, bins, cfg.histo_max)
+            self._fetch_bins()
+            self.cutoff = self.histogram.compute_threshold(
+                cfg.abundance_min_threshold)
+            bins = None
+        rows, cnt = solid_select(planes, counts, n, self.cutoff,
+                                 cfg.abundance_max, bins, cfg.histo_max)
+        self.copies.append(_host_copies([rows, cnt]))
+
+    def result(self, w: int):
+        """(solid k-mers (N, W) uint32, their counts (N,) int32), sorted
+        across the passes; sets the histogram's bins and cutoff."""
+        with time_info.span("count.fetch_wait"):
+            for _, ev in self.copies:
+                if ev is not None:
+                    ev.synchronize()
+        self._fetch_bins()
+        if self.cutoff is None:     # auto, and no pass saw a k-mer
+            self.cutoff = self.histogram.compute_threshold(
+                self.cfg.abundance_min_threshold)
+        elif not self.cfg.auto_cutoff:
+            self.histogram.cutoff = self.cutoff
+        parts = [(rows.numpy().view(np.uint32), cnt.numpy())
+                 for (rows, cnt), _ in self.copies]
+        if not parts:
+            return np.zeros((0, w), np.uint32), np.zeros((0,), np.int32)
+        if len(parts) == 1:
+            return parts[0]
+        from .count_processor import CountProcessorCollect
+
+        collect = CountProcessorCollect()
+        for rows, cnt in parts:
+            collect.process_table(0, rows, cnt[:, None], cnt)
+        kmers, _, sums = collect.result(w)
+        return kmers, sums
+
+
 def _global_merge(kmers: np.ndarray, counts: np.ndarray, w: int,
                   device="cuda"):
     """Device sort+reduce of concatenated partial host tables -> final
@@ -895,6 +966,30 @@ class SortingCount(Algorithm):
         # finished pass
         tables: dict[int, list] = {}
         host_tables: dict[int, object] = {}   # pass -> fetched table
+        distinct = [0]        # the passes' distinct rows
+        # the default processor vector runs on the device unless the
+        # caller plugs a processor, the solidity kind is custom, or an
+        # auto cutoff needs every pass's histogram before any select
+        chain = None
+        if self.processor is None and cfg.solidity_kind in _DEVICE_KINDS \
+                and not (cfg.auto_cutoff and nb_passes > 1):
+            chain = _DeviceChain(cfg, device)
+
+        def finish_pass(pass_i, table):
+            """A pass's distinct table, (planes, counts, n) or None when
+            the pass saw no k-mer: its solid rows selected on the device,
+            or, for the host chain, an empty host table where there is no
+            table (the callers fetch the others)."""
+            n_pass = 0 if table is None else table[2]
+            distinct[0] += n_pass
+            if chain is None:
+                if table is None:
+                    host_tables[pass_i] = _empty_host_table(w)
+                return
+            root.count(solid_select=1)
+            if n_pass:
+                with ti.section("4.process", span="count.process"):
+                    chain.end_pass(*table)
         n_resolved = [0]
         _MAX_LIVE_LSM = 10   # hard cap on live per-pass tables
         # adaptive distinct-ratio estimate: start from the caller's plan
@@ -1092,14 +1187,14 @@ class SortingCount(Algorithm):
                     fold["p"], fold["c"], fold["n"] = \
                         planes_m, counts_m, n_m
                 fold["parked"] = []
-                if fold["p"] is None:
-                    host_tables[pass_i] = _empty_host_table(w)
-                else:
+                table = None
+                if fold["p"] is not None:
                     with time_info.span("count.merge_wait"):
-                        n_pass = int(fold["n"])
-                    host_tables[pass_i] = _StreamedTable(
-                        fold["p"], fold["c"], n_pass, w,
-                        chunk_rows=cfg.fetch_chunk_rows)
+                        table = (fold["p"], fold["c"], int(fold["n"]))
+                    if chain is None:
+                        host_tables[pass_i] = _StreamedTable(
+                            *table, w, chunk_rows=cfg.fetch_chunk_rows)
+            finish_pass(pass_i, table)
             # the streamed fetch still reads these tensors and the fold
             # step updates its accumulator in place, so the next pass
             # starts from fresh tensors
@@ -1180,18 +1275,19 @@ class SortingCount(Algorithm):
             active pass's tables, so the _RePlan budget bounds it."""
             while pending:
                 resolve(pending.pop(0))
+            table = None
             with ti.section("3.merge", span="count.merge"):
                 lst = tables.get(pass_i, [])
                 while len(lst) > 1:
                     _merge_smallest_pair(lst)
                 if lst:
-                    planes_d, counts_d, n_d, _ = lst[0]
+                    planes_d, counts_d, n_d, _ = lst.pop()
                     with time_info.span("count.merge_wait"):
-                        host_tables[pass_i] = _MaterialTable(*_fetch_table(
-                            planes_d, counts_d, int(n_d), w))
-                    lst.clear()
-                else:
-                    host_tables[pass_i] = _empty_host_table(w)
+                        table = (planes_d, counts_d, int(n_d))
+                        if chain is None:
+                            host_tables[pass_i] = _MaterialTable(
+                                *_fetch_table(*table, w))
+            finish_pass(pass_i, table)
 
         def dispatch_staged(codes, valid, lengths, pass_i):
             """flush_group's tail for already-staged device tensors."""
@@ -1292,11 +1388,68 @@ class SortingCount(Algorithm):
         # kmers by minimizer, so a pass table is the reference's notion
         # of a completed partition)
         t1 = time.time()
-        parts = [(p, host_tables[p]) for p in range(nb_passes)]
         kmers_nb_valid = int(sum(valid_scalars))
         kmers_nb_invalid = int(sum(inside_scalars)) - kmers_nb_valid
         t_merge = time.time() - t1
 
+        if chain is None:
+            solid_kmers, solid_counts, histogram, amin = self._host_chain(
+                ti, [(p, host_tables[p]) for p in range(nb_passes)], w)
+        else:
+            with ti.section("4.process", span="count.process"):
+                solid_kmers, solid_counts = chain.result(w)
+            histogram, amin = chain.histogram, chain.cutoff
+        histogram.nb_solids_after_cutoff = len(solid_counts)
+        nb_distinct = distinct[0]
+        root.count(limbs=w, windows=kmers_nb_valid, distinct=nb_distinct,
+                   solid=len(solid_counts))
+
+        info = {
+            "kmers_nb_distinct": nb_distinct,
+            "kmers_nb_solid": int(len(solid_counts)),
+            "kmers_nb_weak": int(nb_distinct - len(solid_counts)),
+            "kmers_nb_valid": int(kmers_nb_valid),
+            "kmers_nb_invalid": int(kmers_nb_invalid),
+            "sequences_number": int(nb_seq),
+            "sequences_size": int(seq_total_size),
+            # seq_size_* (BankStats, SortingCountAlgorithm.cpp:735-742)
+            "seq_size_min": int(max(seq_min[0], 0)),
+            "seq_size_max": int(seq_max[0]),
+            "seq_size_mean": round(seq_total_size / nb_seq, 1)
+            if nb_seq else 0.0,
+            "seq_size_deviation": round(
+                max(seq_sumsq[0] / nb_seq
+                    - (seq_total_size / nb_seq) ** 2, 0.0) ** 0.5, 1)
+            if nb_seq else 0.0,
+            "kmer_size": k,
+            "abundance_min": amin,
+            "abundance_max": cfg.abundance_max,
+            "time_fill": t_fill,
+            "time_merge": t_merge,
+            # passes actually RUN (>= cfg.nb_passes after optimistic
+            # re-planning, counting._RePlan)
+            "nb_passes_effective": int(nb_passes),
+            "parser": "python" if native_paths is None else "native",
+            "device": str(device),
+        }
+        phases = ti.get_properties("fillsolid_time")
+        info.update(phases)
+        info["time.fill_partitions"] = round(
+            t_fill - ti.entries.get("2.sort", 0.0), 3)
+        info["time.fill_solid_kmers"] = round(
+            ti.entries.get("2.sort", 0.0) + t_merge, 3)
+        self.info.update(info)  # Algorithm.get_info() surface
+        return CountResult(solid_kmers, solid_counts, histogram, info,
+                           cfg)
+
+    def _host_chain(self, ti, parts, w: int):
+        """The processor vector on the host, for what the device chain
+        does not take (a caller's processor, custom solidity, an auto
+        cutoff over several passes): each pass's table, fetched whole
+        (``parts``: (pass, host table) pairs), swept by the numpy chain and
+        then by the caller's processor. Returns (solid k-mers, solid
+        counts, histogram, abundance min)."""
+        cfg = self.config
         # ---- count processor vector (ICountProcessor.hpp:92-200) --------
         # Default = histogram -> solidity -> collect, expressed as the
         # plugin chain; with "auto" abundance the histogram runs as its
@@ -1342,52 +1495,11 @@ class SortingCount(Algorithm):
                 proc.end()
 
         solid_kmers, _, solid_sums = collect.result(w)
-        solid_counts = solid_sums.astype(np.int32)
         histogram = hist_proc.histogram
         amin = solidity.resolve_cutoff()
         if not cfg.auto_cutoff:
             histogram.cutoff = amin
-        histogram.nb_solids_after_cutoff = len(solid_counts)
-        nb_distinct = int(sum(st.n for _, st in parts))
-        root.count(limbs=w, windows=kmers_nb_valid, distinct=nb_distinct)
-
-        info = {
-            "kmers_nb_distinct": nb_distinct,
-            "kmers_nb_solid": int(len(solid_counts)),
-            "kmers_nb_weak": int(nb_distinct - len(solid_counts)),
-            "kmers_nb_valid": int(kmers_nb_valid),
-            "kmers_nb_invalid": int(kmers_nb_invalid),
-            "sequences_number": int(nb_seq),
-            "sequences_size": int(seq_total_size),
-            # seq_size_* (BankStats, SortingCountAlgorithm.cpp:735-742)
-            "seq_size_min": int(max(seq_min[0], 0)),
-            "seq_size_max": int(seq_max[0]),
-            "seq_size_mean": round(seq_total_size / nb_seq, 1)
-            if nb_seq else 0.0,
-            "seq_size_deviation": round(
-                max(seq_sumsq[0] / nb_seq
-                    - (seq_total_size / nb_seq) ** 2, 0.0) ** 0.5, 1)
-            if nb_seq else 0.0,
-            "kmer_size": k,
-            "abundance_min": amin,
-            "abundance_max": amax,
-            "time_fill": t_fill,
-            "time_merge": t_merge,
-            # passes actually RUN (>= cfg.nb_passes after optimistic
-            # re-planning, counting._RePlan)
-            "nb_passes_effective": int(nb_passes),
-            "parser": "python" if native_paths is None else "native",
-            "device": str(device),
-        }
-        phases = ti.get_properties("fillsolid_time")
-        info.update(phases)
-        info["time.fill_partitions"] = round(
-            t_fill - ti.entries.get("2.sort", 0.0), 3)
-        info["time.fill_solid_kmers"] = round(
-            ti.entries.get("2.sort", 0.0) + t_merge, 3)
-        self.info.update(info)  # Algorithm.get_info() surface
-        return CountResult(solid_kmers, solid_counts, histogram, info,
-                           cfg)
+        return solid_kmers, solid_sums.astype(np.int32), histogram, amin
 
 
 def _nbytes(t: torch.Tensor | None) -> int:

@@ -19,6 +19,7 @@ from gatb_core_tpu_torch import BankStrings, count_kmers
 from gatb_core_tpu_torch.kmer.model import count_kmers_py
 from gatb_core_tpu_torch.ops import limb_sort as S
 from gatb_core_tpu_torch.ops import rank_search as R
+from gatb_core_tpu_torch.ops import solid_select as SS
 
 pytestmark = pytest.mark.cuda
 
@@ -890,8 +891,8 @@ def test_run_reduce_matches_plain(cuda, P, n, n_valid, nw, cap_out):
 
 def test_count_launches_the_extraction_and_reduce(cuda):
     """A fold count and an LSM count on the card: one extract_planes launch
-    per superbatch and the run_reduce kernel in every reduce; tables equal
-    to the CPU's."""
+    per superbatch, the run_reduce kernel in every reduce and one
+    solid_select a pass; tables equal to the CPU's."""
     from gatb_core_tpu_torch.ops import kmer_ops as tk
     from gatb_core_tpu_torch.ops import sortops as ts
 
@@ -901,11 +902,70 @@ def test_count_launches_the_extraction_and_reduce(cuda):
     for kw in ({}, {"carry_accumulator": False, "nb_passes": 2}):
         tk.reset_launches()
         ts.reset_launches()
+        SS.reset_launches()
         res = count_kmers(BankStrings(*reads), kmer_size=31, abundance_min=1,
                           superbatch_rows=1 << 14, **kw)
         assert tk.launches["extract_planes"] >= 2
         assert ts.launches["run_reduce"] >= 1
+        # the processor chain: one select a pass
+        assert SS.launches["solid_select"] == kw.get("nb_passes", 1)
         cpu = count_kmers(BankStrings(*reads), kmer_size=31, abundance_min=1,
                           superbatch_rows=1 << 14, device="cpu", **kw)
         assert np.array_equal(res.solid_kmers, cpu.solid_kmers)
         assert np.array_equal(res.solid_counts, cpu.solid_counts)
+
+
+def _skewed_counts(n, cap, g):
+    """(cap,) int32 counts of a read bank's distinct table: four in five
+    rows seen once, the others spread to the coverage and past it, the
+    edges (negative, 0, the fetch's 254/255, histo_max and above, the int32
+    maximum) among them; 0 past n."""
+    c = np.zeros(cap, np.int32)
+    live = g.geometric(0.05, n).astype(np.int32) + 1
+    live[g.random(n) < 0.8] = 1
+    edges = np.array([-3, 0, 254, 255, 9999, 10000, 10001, 12000, 2**31 - 1],
+                     np.int32)
+    live[g.integers(0, n, 64)] = np.resize(edges, 64)
+    c[:n] = live
+    return c
+
+
+# (W, live rows, capacity): the chr14 count's W at 2^24 rows, the k 63
+# count's W, one tile and one row past it, a single row
+SELECT_CASES = [(2, 1 << 24, 1 << 24), (4, 3_000_017, 1 << 22),
+                (1, 8193, 1 << 14), (3, 1, 16)]
+
+
+@pytest.mark.parametrize("w,n,cap", SELECT_CASES)
+def test_solid_select_matches_plain(cuda, w, n, cap):
+    """The kernel against solid_select_plain on the card, bit for bit:
+    bins, rows and counts; with the histogram and a fixed cutoff, without
+    it at a finite abundance max, histo_max past the shared bins, and the
+    histogram alone; the launch counters move by one a call."""
+    g = np.random.default_rng(w * 7 + n)
+    planes = torch.from_numpy(g.integers(-2**31, 2**31, (w, cap),
+                                         dtype=np.int64).astype(np.int32))
+    planes = planes.to(cuda)
+    counts = torch.from_numpy(_skewed_counts(n, cap, g)).to(cuda)
+    for lo, hi, histo_max, with_bins in ((2, 2**31 - 1, 10000, True),
+                                         (1, 20, 10000, False),
+                                         (3, 2**31 - 1, 20000, True)):
+        bins = torch.zeros(histo_max + 1, dtype=torch.int64, device=cuda)
+        ref_bins = bins.clone()
+        before = SS.launches["solid_select"]
+        got = SS.solid_select(planes, counts, n, lo, hi,
+                              bins if with_bins else None, histo_max)
+        assert SS.launches["solid_select"] == before + 1
+        assert (w, n, cap, histo_max) in SS.launch_shapes["solid_select"]
+        ref = SS.solid_select_plain(planes, counts, n, lo, hi,
+                                    ref_bins if with_bins else None,
+                                    histo_max)
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)
+        assert torch.equal(bins, ref_bins)
+        before = SS.launches["solid_histogram"]
+        SS.solid_histogram(counts, n, bins, histo_max)
+        assert SS.launches["solid_histogram"] == before + 1
+        SS.solid_histogram_plain(counts, n, ref_bins, histo_max)
+        assert torch.equal(bins, ref_bins)

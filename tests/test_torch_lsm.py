@@ -123,10 +123,10 @@ def test_batch_count_step_matches_jax(k, nb_passes):
     assert (to[1].numpy()[n:] == 0).all()
 
 
-def _count(pkg, reads, **kw):
+def _count(pkg, reads, processor=None, **kw):
     if pkg == "torch":
-        return SortingCount(CountConfig(device="cpu", **kw)).execute(
-            BankStrings(*reads))
+        return SortingCount(CountConfig(device="cpu", **kw),
+                            processor=processor).execute(BankStrings(*reads))
     return jc.SortingCount(jc.CountConfig(**kw)).execute(
         JBankStrings(*reads))
 
@@ -316,8 +316,11 @@ def test_streamed_table_of_nothing_and_errors():
 
 
 def test_fold_path_streams_its_table(monkeypatch):
-    """The fold path hands its per-pass table to _StreamedTable in
-    fetch_chunk_rows chunks; the result does not depend on the chunk."""
+    """On the host chain (here for a caller's processor), the fold path
+    hands its per-pass table to _StreamedTable in fetch_chunk_rows chunks;
+    the result does not depend on the chunk, nor on the chain."""
+    from gatb_core_tpu_torch.kmer.count_processor import CountProcessor
+
     seen = []
     orig = tc._StreamedTable.__init__
 
@@ -327,9 +330,13 @@ def test_fold_path_streams_its_table(monkeypatch):
 
     monkeypatch.setattr(tc._StreamedTable, "__init__", spy)
     kw = dict(kmer_size=31, abundance_min="auto", **SMALL)
-    a = _count("torch", READS, fetch_chunk_rows=256, **kw)
-    b = _count("torch", READS, **kw)
+    a = _count("torch", READS, fetch_chunk_rows=256,
+               processor=CountProcessor(), **kw)
+    b = _count("torch", READS, processor=CountProcessor(), **kw)
     assert seen == [256, 1 << 23]
-    assert np.array_equal(a.solid_kmers, b.solid_kmers)
-    assert np.array_equal(a.solid_counts, b.solid_counts)
+    c = _count("torch", READS, **kw)
+    assert seen == [256, 1 << 23]
+    for got in (b, c):
+        assert np.array_equal(a.solid_kmers, got.solid_kmers)
+        assert np.array_equal(a.solid_counts, got.solid_counts)
     assert a.info["kmers_nb_distinct"] == 2968
