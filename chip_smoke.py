@@ -76,8 +76,7 @@ numpy ground truth computed here:
      after warm-up) beside its plain version's and, where one PyTorch call
      computes the same function, that call's (torch.sort), with the
      outputs held against each other, and the whole sort of 2 and of 4
-     planes x 2^25 rows beside torch.sort; and the fetch of a 30M-row
-     table, whole, packed and streamed;
+     planes x 2^25 rows beside torch.sort;
      extract_planes (ops/kmer_ops) bit for bit against its plain version
      at k = 15, 16, 31, 32, 63 and 95, L = 150 and 151, dense and masked
      validity, one pass and each of three, reads shorter than k, and at
@@ -1048,8 +1047,8 @@ def select_table(torch, w: int, n: int, cap: int, ones: float, cover: int,
                  gen):
     """A pass's distinct table on the card: (W, cap) random planes and
     (cap,) counts, a share ``ones`` of the n live rows seen once, the
-    others Poisson(cover) and at least 2, the edges (0, the fetch's
-    254/255, histo_max and past it, the int32 maximum) among them, 0 past
+    others Poisson(cover) and at least 2, the edges (0, 254, 255,
+    histo_max and past it, the int32 maximum) among them, 0 past
     n. The select reads no order, so the rows are left unsorted."""
     planes = torch.randint(-2**31, MAX_I32, (w, cap), dtype=torch.int32,
                            device="cuda", generator=gen)
@@ -1665,53 +1664,6 @@ def phase_rank_timing(torch, S, R, card: str):
                                             "index_ms", "one_shot_ms")}
     times["shapes"] = res
     return times, err
-
-
-def phase_fetch(torch, card: str):
-    """The fetch of a 30M-row k=31 table (the stress count's: 2 limb
-    planes at capacity 2^25, 29,999,963 live rows) from the card, three
-    ways: whole (``.cpu()`` of planes and int32 counts), packed (one
-    row-major tensor, uint8 counts and the exception list) and streamed
-    (the packed format in chunks of 2^23 rows on a side stream into pinned
-    memory). Host clock around each, the device idle before; each way runs
-    twice (the first pays the pinned allocations). All three must give the
-    same table."""
-    from gatb_core_tpu_torch.kmer import counting as C
-
-    cap, n, w = 1 << 25, 29_999_963, 2
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(5)
-    planes = torch.randint(-2**31, 2**31 - 1, (w, cap), dtype=torch.int32,
-                           device="cuda", generator=gen)
-    counts = torch.randint(1, 60, (cap,), dtype=torch.int32, device="cuda",
-                           generator=gen)
-    counts[::100_003] = 70_000             # a few counts past the uint8
-    planes[:, n:] = -1
-    counts[n:] = 0
-    ways = {
-        "whole": lambda: C._fetch_table_whole(planes, counts, n, w),
-        "packed": lambda: C._fetch_table(planes, counts, n, w),
-        "streamed": lambda: C._StreamedTable(planes, counts, n,
-                                             w).materialize(),
-    }
-    out, secs = {}, {}
-    for name, fn in ways.items():
-        secs[name] = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            out[name] = fn()
-            secs[name].append(time.time() - t0)
-    for name in ("packed", "streamed"):
-        check(np.array_equal(out[name][0], out["whole"][0])
-              and np.array_equal(out[name][1], out["whole"][1]),
-              f"fetch: the {name} table differs from the whole one")
-    log("fetch of a 30M-row table (2 planes, capacity 2^25): "
-        + ", ".join(f"{name} {s[0]:.3f} s then {s[1]:.3f} s"
-                    for name, s in secs.items()) + f"; {card}")
-    del planes, counts, out
-    torch.cuda.empty_cache()
-    return secs
 
 
 def phase_shapes(torch, S, R, shapes: dict) -> dict:
@@ -4435,7 +4387,6 @@ def main() -> int:
     count_times, count_errs = phase_select_timing(torch, card)
     times.update(count_times)
     err_t.update(count_errs)
-    phase_fetch(torch, card)
     tally = Tally()
     with tempfile.TemporaryDirectory(prefix="gatb_smoke_") as tmp, \
             contextlib.ExitStack() as stack:

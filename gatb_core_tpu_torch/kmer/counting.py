@@ -3,8 +3,7 @@
 Port of gatb_core_tpu/kmer/counting.py: the fold path (the default,
 ``CountConfig.carry_accumulator=True``), the LSM merge chain
 (``carry_accumulator=False``, or a table budget below one read batch), the
-packed and streamed table fetch, the multi-pass device bank cache and
-multibank counting. Reference: gatb-core
+multi-pass device bank cache and multibank counting. Reference: gatb-core
 SortingCountAlgorithm (kmer/impl/SortingCountAlgorithm.cpp), where reads
 are split into superkmers spilled to per-partition files, then each
 partition is radix-binned, sorted and 453-way-merged
@@ -12,24 +11,28 @@ partition is radix-binned, sorted and 453-way-merged
 
   host input pipeline:  bank -> packed (B, L) read batches (native C++
                         batcher, or the Python builder)
-  device, per superbatch (_superbatch_count_fold): canonical multi-limb
-                        k-mer extraction (ops/kmer_ops.py), one sort of the
-                        raw rows and one merge level against the
-                        device-resident accumulator (the CUDA kernels of
-                        ops/limb_sort.py), then the distinct reduce
+  device, per superbatch (_FoldDriver, _superbatch_count_fold): canonical
+                        multi-limb k-mer extraction (ops/kmer_ops.py), one
+                        sort of the raw rows and one merge level against
+                        the device-resident accumulator (the CUDA kernels
+                        of ops/limb_sort.py), then the distinct reduce
                         (ops/sortops.py)
-  device, LSM chain (_superbatch_count): extraction, one sort and a
-                        distinct reduce per superbatch into its own table;
-                        the per-pass tables merge by size class
+  device, LSM chain (_LsmDriver, _superbatch_count): extraction, one sort
+                        and a distinct reduce per superbatch into its own
+                        table; the per-pass tables merge by size class
                         (_merge_smallest_pair), at most _MAX_LIVE_LSM live
   device, pass end:     the default CountProcessor chain (histogram ->
                         solidity -> collect) as one kernel
                         (ops/solid_select.py): the histogram's bins and
                         the solid rows, which alone are copied to the host
-  host end of run:      with a caller's processor, custom solidity or an
-                        auto cutoff over several passes, the whole table
-                        is fetched (streamed in chunks on the fold path)
-                        and the numpy chain runs over it
+  host, pass end:       with a caller's processor, custom solidity or an
+                        auto cutoff over several passes, the pass's whole
+                        table is fetched (_fetch_table), and at the end of
+                        the run the numpy chain sweeps every pass's table
+
+Both drivers sit behind one pass loop (SortingCount._execute): the host
+stages each superbatch (_stage_superbatch) and hands it to the driver's
+``dispatch``; the driver's ``end_pass`` returns the pass's distinct table.
 
 Every tensor lives on ``CountConfig.device`` (default ``"cuda"``). A CPU
 device runs the kernels' plain PyTorch twins; that is for tests, and
@@ -108,14 +111,11 @@ class CountConfig:
     # fused count+fold accumulator (DEFAULT): every superbatch extracts
     # and sorts its raw rows and folds them into the device-resident
     # accumulated table with ONE merge level
-    # (_superbatch_count_fold). False selects the LSM chain: one distinct
-    # table per superbatch, merged by size class (kept for A/B and for
-    # shapes the fold cannot take)
+    # (_superbatch_count_fold). The LSM chain (one distinct table per
+    # superbatch, merged by size class) runs instead when this is False,
+    # or when table_budget_bytes is below one read batch, which the fold's
+    # accumulator could not hold
     carry_accumulator: bool = True
-    # streamed final fetch (fold path): the per-pass table is packed and
-    # fetched in chunks of this many rows on a background thread, so the
-    # device-to-host copies overlap the CountProcessor sweep
-    fetch_chunk_rows: int = 1 << 23
     # soft device-memory budget for the accumulated per-pass distinct
     # tables; past it execute() re-plans with twice the passes
     table_budget_bytes: int = 6 << 30
@@ -507,246 +507,31 @@ def _merge_smallest_pair(lst) -> None:
     lst.append((planes, counts, n, ua + ub))
 
 
-def _merge_table_list(tables, w: int):
-    """Merge a list of (planes, counts, n, ub) distinct tables into final
-    host (kmers (N, W), counts (N,)) arrays: sync-free merges (device n
-    scalars, ub-sized capacities), ONE n read, one packed table fetch."""
-    tables = [t for t in tables if t[3] > 0]
-    if not tables:
-        return np.zeros((0, w), np.uint32), np.zeros((0,), np.int32)
-    while len(tables) > 1:
-        _merge_smallest_pair(tables)
-    planes, counts, n, _ = tables[0]
-    return _fetch_table(planes, counts, int(n), w)
-
-
-def _pack_counts(c: torch.Tensor, valid: torch.Tensor, max_exc: int):
-    """Counts of one table slice for the host fetch: (c8 uint8 clamped at
-    254 and 0 on dead rows, n_exc, exc_pos (max_exc,) ascending slice
-    positions of the counts >= 255 padded with MAX_INT32, exc_val their
-    int32 values). No host sync: the exception rows are compacted with a
-    prefix sum and a scatter into a list with one dump slot."""
-    dev = c.device
-    rows = c.shape[0]
-    idx = torch.arange(rows, dtype=I32, device=dev)
-    c8 = torch.where(valid, torch.clamp(c, max=254),
-                     torch.zeros_like(c)).to(torch.uint8)
-    is_exc = (c >= 255) & valid
-    pos = torch.cumsum(is_exc, dim=0) - 1
-    n_exc = is_exc.sum().to(I32)
-    dest = torch.where(is_exc & (pos < max_exc), pos,
-                       torch.full_like(pos, max_exc))
-    exc_pos = torch.full((max_exc + 1,), MAX_INT32, dtype=I32, device=dev)
-    exc_pos.index_copy_(0, dest, idx)
-    exc_pos = exc_pos[:max_exc]
-    exc_val = c[torch.clamp(exc_pos, max=rows - 1).long()]
-    return c8, n_exc, exc_pos, exc_val
-
-
-def _pack_table(planes: torch.Tensor, counts: torch.Tensor, n,
-                cap_out: int | None = None, max_exc: int = 4096):
-    """Pack a distinct table for the host fetch: the first cap_out rows as
-    ONE row-major (cap_out, W) tensor (what the host table is; capacities
-    can exceed pow2(n) on the sync-free merge path), counts clamped to
-    uint8, and the rare counts >= 255 as an exception list: 9/12 of the
-    int32 bytes for W=2. Returns (rows, c8, n_exc, exc_pos, exc_val)."""
-    cap = counts.shape[0]
-    if cap_out is None or cap_out > cap:
-        cap_out = cap
-    valid = torch.arange(cap_out, device=counts.device) < n
-    return (planes[:, :cap_out].T.contiguous(),) + _pack_counts(
-        counts[:cap_out], valid, max_exc)
-
-
-def _pack_table_chunk(planes: torch.Tensor, counts: torch.Tensor,
-                      start: int, n, chunk: int, max_exc: int = 4096):
-    """Chunked variant of _pack_table: rows [start, start+chunk) of a
-    device distinct table; chunk-aligned starts never run past the
-    capacity because it is a power-of-two multiple of the power-of-two
-    chunk."""
-    valid = (torch.arange(chunk, device=counts.device) + start) < n
-    return (planes[:, start:start + chunk].T.contiguous(),) + _pack_counts(
-        counts[start:start + chunk], valid, max_exc)
-
-
-def _host_copies(tensors, stream=None):
+def _host_copies(tensors):
     """Device tensors -> host tensors (pinned, copied asynchronously on
-    ``stream``) plus the event that marks the copies done; CPU tensors
-    come back as they are, with no event."""
+    the current stream) plus the event that marks the copies done; CPU
+    tensors come back as they are, with no event."""
     if not tensors[0].is_cuda:
         return list(tensors), None
-    with torch.cuda.stream(stream):
-        out = []
-        for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, device="cpu",
-                            pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            out.append(h)
-        ev = torch.cuda.Event()
-        ev.record()
+    out = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                        pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        out.append(h)
+    ev = torch.cuda.Event()
+    ev.record()
     return out, ev
 
 
-def _unpack_host(rows_h, c8, n_exc, exc_pos, exc_val, rows: int):
-    """Host side of the packed format -> (kmers (rows, W) uint32, counts
-    (rows,) int32), or None when the exception list overflowed."""
-    ne = int(n_exc)
-    if ne > exc_pos.shape[0]:
-        return None
-    cnt = c8.numpy().astype(np.int32)
-    if ne:
-        cnt[exc_pos.numpy()[:ne]] = exc_val.numpy()[:ne]
-    return rows_h.numpy().view(np.uint32)[:rows], cnt[:rows]
-
-
-def _fetch_table(planes, counts, n: int, w: int, max_exc: int = 4096):
-    """ONE host fetch of a device distinct table -> (kmers (n, W) uint32,
-    counts (n,) int32). Counts ride as uint8 + an exception list; if the
-    exception capacity overflows (pathological distribution) the counts
-    are fetched again exactly, as int32."""
-    if n == 0:
-        return np.zeros((0, w), np.uint32), np.zeros((0,), np.int32)
-    packed = _pack_table(planes, counts, n,
-                         cap_out=_next_pow2(max(n, 256)), max_exc=max_exc)
-    host, ev = _host_copies(packed, torch.cuda.current_stream(planes.device)
-                            if planes.is_cuda else None)
-    if ev is not None:
-        ev.synchronize()
-    got = _unpack_host(*host, rows=n)
-    if got is None:
-        return _fetch_table_whole(planes, counts, n, w)
-    return got
-
-
-def _fetch_table_whole(planes, counts, n: int, w: int):
-    """The plain fetch: planes and int32 counts copied whole with
-    ``.cpu()`` -> (kmers (n, W) uint32, counts (n,) int32)."""
+def _fetch_table(planes, counts, n: int, w: int):
+    """The host fetch of a device distinct table: planes and int32 counts
+    copied whole with ``.cpu()`` -> (kmers (n, W) uint32, counts (n,)
+    int32)."""
     if n == 0:
         return np.zeros((0, w), np.uint32), np.zeros((0,), np.int32)
     return (kmers_to_numpy(planes[:, :n]),
             counts[:n].cpu().numpy().astype(np.int32))
-
-
-class _StreamedTable:
-    """Per-pass distinct table streamed from device to host in chunks.
-
-    A background thread packs each chunk on a side stream, copies it into
-    pinned host memory without blocking and records an event behind the
-    copies; it hands a chunk to the consumer (the CountProcessor sweep)
-    only after that event, so the sweep works on earlier chunks while
-    later ones are in flight and never reads one that still is. Chunks are
-    cached on the host, so a repeated iteration (the auto-cutoff double
-    sweep) fetches nothing again, and the device references are dropped
-    once the fetch completes."""
-
-    def __init__(self, planes, counts, n: int, w: int,
-                 chunk_rows: int = 1 << 23, max_exc: int = 4096):
-        self.n = int(n)
-        self.w = w
-        self._chunks: list = []
-        self._err: BaseException | None = None
-        self._done = self.n == 0
-        self._cond = threading.Condition()
-        if self._done:
-            return
-        cap = counts.shape[0]
-        chunk = min(_next_pow2(max(chunk_rows, 256)), cap)
-        starts = list(range(0, self.n, chunk))
-        stream = None
-        if planes.is_cuda:
-            # the side stream starts behind the work that made the table
-            stream = torch.cuda.Stream(planes.device)
-            stream.wait_stream(torch.cuda.current_stream(planes.device))
-
-        def pull(planes=planes, counts=counts):
-            try:
-                for s in starts:
-                    rows = min(self.n - s, chunk)
-                    with torch.cuda.stream(stream):
-                        pk = _pack_table_chunk(planes, counts, s, self.n,
-                                               chunk, max_exc)
-                    host, ev = _host_copies(pk, stream)
-                    if ev is not None:
-                        ev.synchronize()
-                    got = _unpack_host(*host, rows=rows)
-                    if got is None:
-                        # pathological count distribution: exact fetch
-                        with torch.cuda.stream(stream):
-                            exact = [counts[s:s + rows]]
-                        (c_h,), ev = _host_copies(exact, stream)
-                        if ev is not None:
-                            ev.synchronize()
-                        got = (host[0].numpy().view(np.uint32)[:rows],
-                               c_h.numpy().astype(np.int32))
-                    with self._cond:
-                        self._chunks.append(got)
-                        self._cond.notify_all()
-            except BaseException as e:
-                with self._cond:
-                    self._err = e
-                    self._cond.notify_all()
-            finally:
-                planes = counts = None
-                with self._cond:
-                    self._done = True
-                    self._cond.notify_all()
-
-        self._thread = threading.Thread(target=pull, daemon=True)
-        self._thread.start()
-
-    def iter(self):
-        i = 0
-        while True:
-            with self._cond:
-                if self._missing(i):
-                    with time_info.span("count.fetch_wait"):
-                        self._cond.wait_for(lambda: not self._missing(i))
-                if self._err is not None:
-                    raise self._err
-                if i < len(self._chunks):
-                    chunk = self._chunks[i]
-                else:
-                    return
-            yield chunk
-            i += 1
-
-    def _missing(self, i: int) -> bool:
-        """Chunk ``i`` is still to come (under ``_cond``)."""
-        return i >= len(self._chunks) and not self._done \
-            and self._err is None
-
-    def materialize(self):
-        """Concatenated (kmers, counts) host arrays."""
-        ks, cs = [], []
-        for uk, uc in self.iter():
-            ks.append(uk)
-            cs.append(uc)
-        if not ks:
-            return (np.zeros((0, self.w), np.uint32),
-                    np.zeros((0,), np.int32))
-        return np.concatenate(ks), np.concatenate(cs)
-
-
-class _MaterialTable:
-    """Already-fetched (kmers (N, W) uint32, counts (N,) int32) host table
-    with the same .iter() surface as _StreamedTable (LSM path)."""
-
-    def __init__(self, kmers: np.ndarray, counts: np.ndarray):
-        self._kmers, self._counts = kmers, counts
-        self.n = len(counts)
-        self.w = kmers.shape[1] if kmers.ndim == 2 else 0
-
-    def iter(self):
-        if self.n:
-            yield self._kmers, self._counts
-
-    def materialize(self):
-        return self._kmers, self._counts
-
-
-def _empty_host_table(w: int) -> _MaterialTable:
-    return _MaterialTable(np.zeros((0, w), np.uint32),
-                          np.zeros((0,), np.int32))
 
 
 # the solidity kinds that, on one bank, are each lo <= count <= hi
@@ -845,6 +630,439 @@ def _merge_jit(kmers, counts, inv) -> CountTable:
     return count_sorted(sk, si, weights=sc)
 
 
+_MAX_LIVE_LSM = 10   # hard cap on the LSM chain's live per-pass tables
+
+
+class _ReadStream:
+    """The count's input: the bank as host read batches (parse + 2-bit
+    encode [+ pack]) and its BankStats block
+    (SortingCountAlgorithm.cpp:735-742), gathered on the first pass."""
+
+    def __init__(self, bank, cfg: CountConfig):
+        self.bank = bank
+        self.cfg = cfg
+        self.builder = _BatchBuilder(cfg.kmer_size, cfg.batch_reads,
+                                     cfg.batch_len)
+        self.native_paths = _native_fastx_paths(bank)
+        self.nb_seq = 0
+        self.total_size = 0
+        self.min = -1
+        self.max = 0
+        self.sumsq = 0.0
+
+    def _add(self, n: int, total: int, lo: int, hi: int, sumsq: float):
+        self.nb_seq += n
+        self.total_size += total
+        if n:
+            self.min = lo if self.min < 0 else min(self.min, lo)
+            self.max = max(self.max, hi)
+            self.sumsq += sumsq
+
+    def batches(self, count_stats: bool):
+        """The host batch stream, run on a producer thread (``_prefetch``)
+        so parsing overlaps device work; ``count_stats`` adds the
+        sequences to the BankStats fields."""
+        cfg = self.cfg
+        packed = bool(cfg.packed_transfer)
+        if self.native_paths is not None:
+            # native C++ parse+encode+batch path (native/fastx.cpp),
+            # batch shapes identical to _BatchBuilder; the C call
+            # releases the GIL
+            from ..native import NativeBatcher
+
+            for path in self.native_paths:
+                nat = NativeBatcher(path, cfg.kmer_size, cfg.batch_reads,
+                                    self.builder.L)
+                it = nat.iter_packed() if packed else iter(nat)
+                for batch in it:
+                    yield batch
+                if count_stats:
+                    self._add(*nat.stats_full())
+            return
+        from ..ops.bitpack import pack_batch_np
+
+        def emit(batch):
+            if not packed:
+                return batch
+            codes, val, lens, row = batch
+            words, vmask = pack_batch_np(codes, val)
+            return words, vmask, lens, row
+
+        for seq in self.bank:
+            if count_stats:
+                n = len(seq)
+                self._add(1, n, n, n, float(n) * n)
+            for batch in self.builder.add(seq.data):
+                yield emit(batch)
+        if self.builder.row:
+            yield emit(self.builder.flush())
+
+
+def _groups(batches, G: int):
+    """The batch stream in superbatch groups of G batches (the last one
+    may be shorter)."""
+    group: list = []
+    for batch in batches:
+        group.append(batch)
+        if len(group) == G:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+class _BankCache:
+    """The multi-pass device-resident bank cache: every DSK pass streams
+    the SAME packed reads (the pass filter is on the device), so pass 0
+    keeps its staged device tensors and later passes dispatch off them:
+    no re-parse, no re-upload. Budget-gated: the cache is dropped whole
+    (``staged`` None) the moment it would exceed its budget."""
+
+    def __init__(self, budget: int, enabled: bool):
+        self.budget = budget
+        self.bytes = 0
+        self.staged: list | None = [] if enabled else None
+
+    def add(self, staged) -> None:
+        if self.staged is None:
+            return
+        nb = sum(_nbytes(t) for t in staged)
+        if self.bytes + nb <= self.budget:
+            self.staged.append(staged)
+            self.bytes += nb
+        else:
+            self.staged = None
+
+
+def _stage_superbatch(group, G: int, driver, cache: _BankCache):
+    """One superbatch on the driver's device: its read batches stacked, a
+    short group padded with empty batches to G or, where the driver asks
+    (``driver.pow2_tail``), to the next power of two, uploaded,
+    and kept in ``cache`` while the cache takes them. Returns (codes,
+    valid, lengths); valid is None where the driver takes dense transfer
+    (``driver.dense``) and every validity mask is the all-in-length
+    pattern."""
+    g = len(group)
+    if g < G:
+        c0, v0 = group[0][0], group[0][1]
+        empty = (np.zeros(c0.shape, c0.dtype), np.zeros(v0.shape, v0.dtype),
+                 np.zeros((c0.shape[0],), np.int32), 0)
+        to = _next_pow2(g) if driver.pow2_tail else G
+        group = group + [empty] * (to - g)
+    device = driver.device
+    with driver.ti.section("1.stack", span="count.stage"):
+        codes = _stage(np.stack([b[0] for b in group]), device)
+        if driver.dense and all(_vmask_dense(b[1], b[2]) for b in group):
+            valid = None
+        else:
+            valid = _stage(np.stack([b[1] for b in group]), device)
+        lengths = _stage(np.stack([b[2] for b in group]), device)
+    staged = (codes, valid, lengths)
+    cache.add(staged)
+    return staged
+
+
+class _Driver:
+    """What the fold and LSM drivers share: the count's constants, the
+    superbatches in flight, the learned distinct ratio and the first
+    pass's window counts. A driver takes each staged superbatch in
+    ``dispatch(staged, pass_i, first_pass, g)`` (``g`` read batches, the
+    progress step) and gives the pass's distinct table, (planes, counts,
+    n) on the device or None when no superbatch ran, from ``end_pass()``.
+    """
+
+    def __init__(self, cfg: CountConfig, nb_passes: int, L: int,
+                 rows_per_batch: int, budget_rows: int, root, ti,
+                 progress):
+        self.cfg = cfg
+        self.device = torch.device(cfg.device)
+        self.k = cfg.kmer_size
+        self.w = nb_limbs(self.k)
+        self.nb_passes = nb_passes
+        self.packed = bool(cfg.packed_transfer)
+        self.L = L if self.packed else None
+        self.rows_per_batch = rows_per_batch
+        self.budget_rows = budget_rows
+        self.root, self.ti, self.progress = root, ti, progress
+        # adaptive distinct-ratio estimate: start from the caller's plan
+        # hint, learn from each superbatch's measured n/rows
+        self.ratio = float(cfg.distinct_ratio_hint)
+        self.pending: list = []   # dispatched superbatches to resolve
+        self.n_resolved = 0
+        self.windows = 0          # valid k-mer windows (first pass)
+        self.inside = 0           # windows inside the reads (first pass)
+
+    def _drain(self) -> None:
+        while self.pending:
+            self._resolve(self.pending.pop(0))
+
+    def _cap_out(self, rows: int) -> int:
+        """Distinct-table capacity of one superbatch: coverage makes
+        distinct << rows; the ratio is learned from each superbatch's
+        measured n/rows (with 1.5x headroom) and the overflow flags
+        guard exactness (a re-run or replay at full capacity), the role
+        of the plan's distinct-kmer estimate in the reference
+        (ConfigurationAlgorithm.cpp:308)."""
+        return _next_pow2(max(256, min(rows, int(rows * self.ratio * 1.5))))
+
+
+class _FoldDriver(_Driver):
+    """The fused count+fold accumulator: one device step per superbatch
+    (_superbatch_count_fold). The in-flight window stays 2 deep (the
+    overflow flags are read lazily at resolve time, so device work queues
+    ahead of the host); an overflowed superbatch was NOT committed
+    (transactional fold), so it is replayed from its staged inputs on a
+    doubled accumulator, the pre-growth acc is parked, and parked accs
+    fold back in at pass end with one merge each. Every superbatch has
+    one shape (a short group is padded to G), and with packed transfer a
+    clean bank's all-ones validity masks are not sent (the extraction
+    uses the in-length rule)."""
+
+    pow2_tail = False
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.dense = self.packed
+        self.cap_budget = max(_next_pow2(self.budget_rows), 1024)
+        self.p = self.c = self.n = None     # the accumulator
+        self.cap = 0
+        self.used = False
+        self.n_known = 0
+        self.parked: list = []
+        self.replay: list = []
+
+    def _arrays(self, cap: int) -> None:
+        self.p, self.c, self.n = _empty_table(self.w, cap, self.device)
+        self.cap = cap
+        self.used = False
+
+    def _park_and_grow(self, newcap: int) -> None:
+        """Drain the window, park the committed acc, continue on a fresh
+        accumulator of ``newcap`` rows (parked accs fold back in at pass
+        end)."""
+        if newcap > self.cap_budget:
+            raise _RePlan(self.nb_passes)
+        self._drain()
+        if self.p is not None and self.used:
+            self.parked.append((self.p, self.c, self.n))
+        self._arrays(newcap)
+
+    def _caps(self, rows: int):
+        """(cap_out | None, capR) for a superbatch of ``rows`` raw rows:
+        compact-first when the learned distinct ratio says the
+        per-superbatch table is far below the raw row count."""
+        capR = _next_pow2(max(rows, 256))
+        co = self._cap_out(rows)
+        return (co if co <= capR // 4 else None), capR
+
+    def dispatch(self, staged, pass_i: int, first_pass: bool, g: int):
+        self._dispatch(staged, pass_i, first_pass, g)
+        if self.replay:
+            self._grow_and_replay()
+
+    def _dispatch(self, staged, pass_i, count_stats, g):
+        rows = staged[0].shape[0] * self.rows_per_batch
+        cap_out, capR = self._caps(rows)
+        if self.p is None:
+            # fresh pass: raw mode needs room for the raw rows; compact
+            # mode sizes from the distinct estimate with 4x headroom; a
+            # previous pass's grown capacity is kept
+            init = capR if cap_out is None else \
+                min(capR, max(4 * cap_out, 1 << 12))
+            self._arrays(max(self.cap, init))
+        elif cap_out is None and self.cap < capR:
+            # mode flipped to raw mid-run: the acc must hold raw rows
+            self._park_and_grow(capR)
+        elif cap_out is not None and self.used and self.cap < capR \
+                and self.n_known + 3 * cap_out > self.cap:
+            # proactive: the (lagged) live count plus the in-flight
+            # window could overflow — grow now, without replays
+            self._park_and_grow(
+                min(capR, max(self.cap * 2,
+                              _next_pow2(self.n_known + 4 * cap_out))))
+        # reset=False: every accumulator comes fresh from _arrays
+        self.root.count(superbatches=1)
+        with self.ti.section("2.sort", span="count.dispatch"):
+            out = _superbatch_count_fold(
+                *staged, pass_i, self.p, self.c, self.n, False, k=self.k,
+                m=self.cfg.minimizer_size, nb_passes=self.nb_passes,
+                packed=self.packed, L=self.L, cap_acc=self.cap,
+                cap_out=cap_out)
+        self.p, self.c, self.n, flags, n_loc, nv, ni = out
+        self.used = True
+        self.pending.append((flags, n_loc, self.n, nv, ni, staged, pass_i,
+                             count_stats, g, rows, cap_out is not None))
+        # window 2: each in-flight fold keeps its staged inputs alive for
+        # a possible replay
+        while len(self.pending) > 2:
+            self._resolve(self.pending.pop(0))
+
+    def _resolve(self, item) -> None:
+        (flags, n_loc, keep_n, nv, ni, staged, pass_i, count_stats, g,
+         rows, compact) = item
+        with self.ti.section("2.sort", span="count.resolve"):
+            # ONE device->host copy for all of this superbatch's scalars
+            fl0, fl1, nl, kn, nvv, niv = torch.cat(
+                [flags.to(I64), torch.stack(
+                    [n_loc.to(I64), keep_n.to(I64), nv, ni])]).tolist()
+        if count_stats:
+            self.windows += int(nvv)
+            self.inside += int(niv)
+        if fl0 or fl1:
+            if fl0:   # cap_out too small: raise the ratio estimate
+                self.ratio = min(1.0, max(self.ratio * 2, int(nl) / rows))
+            self.replay.append((staged, pass_i, bool(fl1)))
+        else:
+            self.n_known = max(self.n_known, int(kn))
+            if compact:
+                self.ratio = max(self.ratio, int(nl) / rows)
+            elif self.n_resolved == 0:
+                # first raw superbatch onto an empty acc: keep_n IS its
+                # distinct count — calibrate the ratio
+                self.ratio = max(self.ratio, int(kn) / rows)
+        self.n_resolved += 1
+        self.progress.inc(g)
+
+    def _grow_and_replay(self) -> None:
+        """Overflow seen: drain the window (collecting any further
+        overflows), park the committed acc and double the accumulator if
+        it overflowed, replay the uncommitted superbatches."""
+        self._drain()
+        while self.replay:
+            replays, self.replay = self.replay, []
+            if any(acc_ovf for _, _, acc_ovf in replays):
+                self._park_and_grow(self.cap * 2)
+            self.root.count(replays=len(replays))
+            for staged, pass_i, _ in replays:
+                self._dispatch(staged, pass_i, False, staged[0].shape[0])
+            self._drain()
+
+    def end_pass(self):
+        self._grow_and_replay()     # drain, then replay any overflow
+        table = None
+        with self.ti.section("3.merge", span="count.merge"):
+            for pp, pc, pn in self.parked:
+                while True:
+                    planes_m, counts_m, n_m, ovf_m = merge_tables_planes(
+                        pp, pc, pn, self.p, self.c, self.n,
+                        cap_out=self.cap)
+                    with time_info.span("count.merge_wait"):
+                        ovf_m = bool(ovf_m)
+                    if not ovf_m:
+                        break
+                    if self.cap * 2 > self.cap_budget:
+                        raise _RePlan(self.nb_passes)
+                    self.cap *= 2
+                self.p, self.c, self.n = planes_m, counts_m, n_m
+            self.parked = []
+            if self.p is not None:
+                with time_info.span("count.merge_wait"):
+                    table = (self.p, self.c, int(self.n))
+        # the fold updates its accumulator in place and the table is the
+        # pass's result, so the next pass starts from fresh tensors
+        self.p = self.c = self.n = None
+        self.n_known = 0
+        return table
+
+
+class _LsmDriver(_Driver):
+    """The LSM chain: one distinct table per superbatch
+    (_superbatch_count), this pass's tables rolling-merged by size class
+    so that device memory stays bounded: at most _MAX_LIVE_LSM tables
+    during a pass, ONE at its end. A short group is padded to the next
+    power of two, which the capacity sizing expects; every validity mask
+    is sent."""
+
+    dense = False
+    pow2_tail = True
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.spare = (2 * self.k) % 32 != 0
+        self.tables: list = []      # (planes, counts, n, ub)
+
+    def _count(self, staged, pass_i, cap_out):
+        self.root.count(superbatches=1)
+        return _superbatch_count(
+            *staged, pass_i, k=self.k, m=self.cfg.minimizer_size,
+            nb_passes=self.nb_passes, spare=self.spare, cap_out=cap_out,
+            packed=self.packed, L=self.L)
+
+    def dispatch(self, staged, pass_i: int, first_pass: bool, g: int):
+        rows = staged[0].shape[0] * self.rows_per_batch
+        with self.ti.section("2.sort", span="count.dispatch"):
+            out = self._count(staged, pass_i, self._cap_out(rows))
+        self.pending.append((out, rows, staged, pass_i, first_pass, g))
+        # resolve the FIRST superbatch immediately (learn the distinct
+        # ratio before sizing the next); after that keep up to 3 in
+        # flight so host parse + transfer overlap device work
+        while len(self.pending) > (0 if self.n_resolved == 0 else 3):
+            self._resolve(self.pending.pop(0))
+
+    def _resolve(self, item) -> None:
+        """Sync point of one superbatch: overflow check (+ exact rerun
+        at full capacity when tripped), stats, ratio update, merges."""
+        out, rows, staged, pass_i, first_pass, g = item
+        with self.ti.section("2.sort", span="count.resolve"):
+            # ONE device->host copy for all of this superbatch's scalars
+            # (overflow flag, n, valid/inside counts)
+            ov, n, nv, ni = torch.stack(
+                [out[3].to(I64), out[2].to(I64), out[4], out[5]]).tolist()
+            if ov:  # overflow: rerun unbounded (always exact); the
+                # table's capacity is then the padded row count, a
+                # power of two with a sentinel tail as merges need
+                self.root.count(replays=1)
+                with time_info.span("count.dispatch"):
+                    out = self._count(staged, pass_i, None)
+                n, nv, ni = torch.stack(
+                    [out[2].to(I64), out[4], out[5]]).tolist()
+            if first_pass:
+                self.windows += int(nv)
+                self.inside += int(ni)
+            n = int(n)
+            self.ratio = max(self.ratio, n / rows)
+        lst = self.tables
+        # no eager trim: rows past n are sentinel, merges mask them; ub = n
+        lst.append((out[0], out[1], n, n))
+        if sum(t[3] for t in lst) > self.budget_rows:
+            # bounds are no-dedup sums; collapse every bound to the exact
+            # n before concluding the pass really blew the budget
+            # (high-overlap banks would otherwise spuriously cascade
+            # re-plans)
+            lst[:] = [(p, c, nn, int(nn)) for (p, c, nn, _u) in lst]
+            if sum(t[3] for t in lst) > self.budget_rows:
+                raise _RePlan(self.nb_passes)
+        self.n_resolved += 1
+        with self.ti.section("3.merge", span="count.merge"):
+            # LSM-style size-classed merging: only merge the two smallest
+            # tables while they are in the same size class. An
+            # accumulate-into-one policy re-sorts the big table once per
+            # superbatch, O(N*P) rows; the binary-counter tree is
+            # O(N*log P) with <= ~log2(P)+2 live tables
+            while len(lst) >= 2:
+                lst.sort(key=lambda t: t[3])
+                if len(lst) <= _MAX_LIVE_LSM and lst[1][3] > 2 * lst[0][3]:
+                    break
+                _merge_smallest_pair(lst)
+        self.progress.inc(g)
+
+    def end_pass(self):
+        """Pass boundary: drain and merge this pass down to ONE table:
+        device memory holds at most the active pass's tables, so the
+        _RePlan budget bounds it."""
+        self._drain()
+        table = None
+        with self.ti.section("3.merge", span="count.merge"):
+            lst = self.tables
+            while len(lst) > 1:
+                _merge_smallest_pair(lst)
+            if lst:
+                planes, counts, n, _ = lst.pop()
+                with time_info.span("count.merge_wait"):
+                    table = (planes, counts, int(n))
+        return table
+
+
 class SortingCount(Algorithm):
     """Driver for the counting pipeline (SortingCountAlgorithm equivalent),
     on the Algorithm execute()/run()/get_info() contract
@@ -884,89 +1102,20 @@ class SortingCount(Algorithm):
     def _execute(self, bank, nb_passes: int) -> CountResult:
         cfg = self.config
         device = torch.device(cfg.device)
-        bank = open_bank(bank)
+        stream = _ReadStream(open_bank(bank), cfg)
         k = cfg.kmer_size
         w = nb_limbs(k)
+        L = stream.builder.L
         t0 = time.time()
         root = time_info.current()      # ``count``, where it is recorded
-
-        builder = _BatchBuilder(k, cfg.batch_reads, cfg.batch_len)
-        valid_scalars: list[int] = []
-        inside_scalars: list[int] = []
-        nb_seq = 0
-        seq_total_size = 0
-        # BankStats block (SortingCountAlgorithm.cpp:735-742)
-        seq_min = [-1]
-        seq_max = [0]
-        seq_sumsq = [0.0]
-        spare = (2 * k) % 32 != 0
-        native_paths = _native_fastx_paths(bank)
         # soft budget: STORED bytes per live table row (limb planes +
         # counts); sort transients are bounded separately by
         # cfg.superbatch_rows and do not persist across superbatches
         row_bytes = 4 * w + 4
         budget_rows = max(cfg.table_budget_bytes // row_bytes, 1024)
-
-        rows_per_batch = cfg.batch_reads * (builder.L - k + 1)
+        rows_per_batch = cfg.batch_reads * (L - k + 1)
         G = max(1, int(cfg.superbatch_rows) // rows_per_batch)
 
-        packed = bool(cfg.packed_transfer)
-
-        def produce(count_stats: bool):
-            """Host batch stream (parse + 2-bit encode [+ pack]), run on a
-            producer thread so parsing overlaps device work."""
-            nonlocal nb_seq, seq_total_size
-            if native_paths is not None:
-                # native C++ parse+encode+batch path (native/fastx.cpp),
-                # batch shapes identical to _BatchBuilder; the C call
-                # releases the GIL
-                from ..native import NativeBatcher
-
-                for path in native_paths:
-                    nat = NativeBatcher(path, k, cfg.batch_reads, builder.L)
-                    it = nat.iter_packed() if packed else iter(nat)
-                    for batch in it:
-                        yield batch
-                    if count_stats:
-                        s_n, s_t, s_mn, s_mx, s_sq = nat.stats_full()
-                        nb_seq += s_n
-                        seq_total_size += s_t
-                        if s_n:
-                            seq_min[0] = s_mn if seq_min[0] < 0 \
-                                else min(seq_min[0], s_mn)
-                            seq_max[0] = max(seq_max[0], s_mx)
-                            seq_sumsq[0] += s_sq
-            else:
-                from ..ops.bitpack import pack_batch_np
-
-                def emit(batch):
-                    if not packed:
-                        return batch
-                    codes, val, lens, row = batch
-                    words, vmask = pack_batch_np(codes, val)
-                    return words, vmask, lens, row
-
-                for seq in bank:
-                    if count_stats:
-                        nb_seq += 1
-                        L = len(seq)
-                        seq_total_size += L
-                        seq_min[0] = L if seq_min[0] < 0 \
-                            else min(seq_min[0], L)
-                        seq_max[0] = max(seq_max[0], L)
-                        seq_sumsq[0] += float(L) * L
-                    for batch in builder.add(seq.data):
-                        yield emit(batch)
-                if builder.row:
-                    yield emit(builder.flush())
-
-        # per-pass lists of (planes, counts, n, ub) distinct tables of the
-        # LSM chain, rolling-merged so device memory stays bounded: at most
-        # _MAX_LIVE_LSM tables during a pass, ONE accumulated table per
-        # finished pass
-        tables: dict[int, list] = {}
-        host_tables: dict[int, object] = {}   # pass -> fetched table
-        distinct = [0]        # the passes' distinct rows
         # the default processor vector runs on the device unless the
         # caller plugs a processor, the solidity kind is custom, or an
         # auto cutoff needs every pass's histogram before any select
@@ -974,57 +1123,19 @@ class SortingCount(Algorithm):
         if self.processor is None and cfg.solidity_kind in _DEVICE_KINDS \
                 and not (cfg.auto_cutoff and nb_passes > 1):
             chain = _DeviceChain(cfg, device)
-
-        def finish_pass(pass_i, table):
-            """A pass's distinct table, (planes, counts, n) or None when
-            the pass saw no k-mer: its solid rows selected on the device,
-            or, for the host chain, an empty host table where there is no
-            table (the callers fetch the others)."""
-            n_pass = 0 if table is None else table[2]
-            distinct[0] += n_pass
-            if chain is None:
-                if table is None:
-                    host_tables[pass_i] = _empty_host_table(w)
-                return
-            root.count(solid_select=1)
-            if n_pass:
-                with ti.section("4.process", span="count.process"):
-                    chain.end_pass(*table)
-        n_resolved = [0]
-        _MAX_LIVE_LSM = 10   # hard cap on live per-pass tables
-        # adaptive distinct-ratio estimate: start from the caller's plan
-        # hint, learn from each superbatch's measured n/rows
-        dedup_ratio = {"est": float(cfg.distinct_ratio_hint)}
-        from ..misc.time_info import Progress, TimeInfo
-
-        ti = TimeInfo()
+        ti = time_info.TimeInfo()
         try:
-            est_n, est_total, _ = bank.estimate()
+            est_n, est_total, _ = stream.bank.estimate()
             est_batches = max(1, est_total // max(
-                cfg.batch_reads * builder.L, 1) + 1)
+                cfg.batch_reads * L, 1) + 1)
         except Exception:
             est_batches = 1
-        progress = Progress(est_batches * nb_passes,
-                            "DSK: counting kmers",
-                            verbose=cfg.verbose > 0)
+        progress = time_info.Progress(est_batches * nb_passes,
+                                      "DSK: counting kmers",
+                                      verbose=cfg.verbose > 0)
 
-        pending: list = []  # dispatched superbatches awaiting resolution
-        # multi-pass device-resident bank cache: every DSK pass streams
-        # the SAME packed reads (the pass filter is on the device), so
-        # pass 0 keeps its staged device tensors and later passes dispatch
-        # off them: no re-parse, no re-upload. Budget-gated: the cache is
-        # dropped whole the moment it would exceed cfg.bank_cache_bytes.
-        bank_cache: list | None = [] if nb_passes > 1 else None
-        cache_bytes = [0]
-
-        # ---- fused count+fold accumulator state ------------------------
-        # one device step per superbatch (_superbatch_count_fold). The
-        # in-flight window stays 2 deep (the overflow flags are read
-        # lazily at resolve time, so device work queues ahead of the
-        # host); an overflowed superbatch was NOT committed (transactional
-        # fold), so it is replayed from its staged inputs on a doubled
-        # accumulator, the pre-growth acc is parked, and parked accs fold
-        # back in at pass end with one merge each.
+        # the fold's accumulator must hold one superbatch's raw rows
+        # within the budget: G halves until it does
         use_fold = bool(cfg.carry_accumulator)
         cap0 = _next_pow2(max(G * rows_per_batch, 256))
         if use_fold:
@@ -1033,377 +1144,64 @@ class SortingCount(Algorithm):
                 cap0 = _next_pow2(max(G * rows_per_batch, 256))
             if cap0 > budget_rows:
                 use_fold = False  # tiny budget: LSM compacts per batch
-        fold = {"p": None, "c": None, "n": None, "cap": 0,
-                "parked": [], "replay": [],
-                "growing": False, "n_known": 0, "used": False}
-        cap_budget = max(_next_pow2(budget_rows), 1024)
-
-        def fold_arrays(cap: int):
-            fold["p"], fold["c"], fold["n"] = _empty_table(w, cap, device)
-            fold["cap"] = cap
-            fold["used"] = False
-
-        def fold_park_and_grow(newcap: int):
-            """Drain the window, park the committed acc, continue on a
-            fresh accumulator of ``newcap`` rows (parked accs fold back
-            in at pass end — proactive growth, no replays)."""
-            if newcap > cap_budget:
-                raise _RePlan(nb_passes)
-            while pending:
-                fold_resolve(pending.pop(0))
-            if fold["p"] is not None and fold["used"]:
-                fold["parked"].append((fold["p"], fold["c"], fold["n"]))
-            fold_arrays(newcap)
-
-        def fold_caps(rows: int):
-            """(cap_out | None, capR) for a superbatch of ``rows`` raw
-            rows: compact-first when the learned distinct ratio says the
-            per-superbatch table is far below the raw row count."""
-            capR = _next_pow2(max(rows, 256))
-            est = dedup_ratio["est"]
-            co = _next_pow2(max(256, min(rows, int(rows * est * 1.5))))
-            return (co if co <= capR // 4 else None), capR
-
-        def fold_dispatch(codes, valid, lengths, pass_i, count_stats,
-                          g_len):
-            rows = codes.shape[0] * rows_per_batch
-            cap_out_d, capR = fold_caps(rows)
-            if fold["p"] is None:
-                # fresh pass: raw mode needs room for the raw rows;
-                # compact mode sizes from the distinct estimate with 4x
-                # headroom; a previous pass's grown capacity is kept
-                init = capR if cap_out_d is None else \
-                    min(capR, max(4 * cap_out_d, 1 << 12))
-                fold_arrays(max(fold["cap"], init))
-            elif cap_out_d is None and fold["cap"] < capR:
-                # mode flipped to raw mid-run: the acc must hold raw rows
-                fold_park_and_grow(capR)
-            elif cap_out_d is not None and fold["used"] \
-                    and fold["cap"] < capR \
-                    and fold["n_known"] + 3 * cap_out_d > fold["cap"]:
-                # proactive: the (lagged) live count plus the in-flight
-                # window could overflow — grow now, without replays
-                fold_park_and_grow(
-                    min(capR, max(fold["cap"] * 2,
-                                  _next_pow2(fold["n_known"]
-                                             + 4 * cap_out_d))))
-            # reset=False: every accumulator comes fresh from fold_arrays
-            root.count(superbatches=1)
-            with ti.section("2.sort", span="count.dispatch"):
-                out = _superbatch_count_fold(
-                    codes, valid, lengths, pass_i,
-                    fold["p"], fold["c"], fold["n"], False,
-                    k=k, m=cfg.minimizer_size, nb_passes=nb_passes,
-                    packed=packed,
-                    L=builder.L if packed else None,
-                    cap_acc=fold["cap"], cap_out=cap_out_d)
-            keep_p, keep_c, keep_n, flags, n_loc, nv, ni = out
-            fold["p"], fold["c"], fold["n"] = keep_p, keep_c, keep_n
-            fold["used"] = True
-            pending.append((flags, n_loc, keep_n, nv, ni,
-                            (codes, valid, lengths), pass_i,
-                            count_stats, g_len, rows,
-                            cap_out_d is not None))
-            # window 2: each in-flight fold keeps its staged inputs alive
-            # for a possible replay
-            while len(pending) > 2:
-                fold_resolve(pending.pop(0))
-
-        def fold_resolve(item):
-            (flags, n_loc, keep_n, nv, ni, staged, pass_i, count_stats,
-             g_len, rows, compact) = item
-            with ti.section("2.sort", span="count.resolve"):
-                # ONE device->host copy for all of this superbatch's
-                # scalars
-                fl0, fl1, nl, kn, nvv, niv = torch.cat(
-                    [flags.to(I64), torch.stack(
-                        [n_loc.to(I64), keep_n.to(I64), nv, ni])]).tolist()
-            if count_stats:
-                valid_scalars.append(int(nvv))
-                inside_scalars.append(int(niv))
-            if fl0 or fl1:
-                if fl0:   # cap_out too small: raise the ratio estimate
-                    dedup_ratio["est"] = min(
-                        1.0, max(dedup_ratio["est"] * 2, int(nl) / rows))
-                fold["replay"].append((staged, pass_i, bool(fl1)))
-            else:
-                fold["n_known"] = max(fold["n_known"], int(kn))
-                if compact:
-                    dedup_ratio["est"] = max(dedup_ratio["est"],
-                                             int(nl) / rows)
-                elif n_resolved[0] == 0:
-                    # first raw superbatch onto an empty acc: keep_n IS
-                    # its distinct count — calibrate the ratio
-                    dedup_ratio["est"] = max(dedup_ratio["est"],
-                                             int(kn) / rows)
-            n_resolved[0] += 1
-            progress.inc(g_len)
-
-        def fold_grow_and_replay():
-            """Overflow seen: drain the window (collecting any further
-            overflows), park the committed acc, grow the blown
-            capacity, replay the uncommitted superbatches."""
-            fold["growing"] = True
-            try:
-                while pending:
-                    fold_resolve(pending.pop(0))
-                while fold["replay"]:
-                    replays, fold["replay"] = fold["replay"], []
-                    if any(acc_ovf for _, _, acc_ovf in replays):
-                        newcap = fold["cap"] * 2
-                        if newcap > cap_budget:
-                            raise _RePlan(nb_passes)
-                        if fold["p"] is not None and fold["used"]:
-                            fold["parked"].append(
-                                (fold["p"], fold["c"], fold["n"]))
-                        fold_arrays(newcap)
-                    root.count(replays=len(replays))
-                    for staged, pi, _ in replays:
-                        fold_dispatch(*staged, pi, False,
-                                      staged[0].shape[0])
-                    while pending:
-                        fold_resolve(pending.pop(0))
-            finally:
-                fold["growing"] = False
-
-        def fold_end_pass(pass_i):
-            while pending:
-                fold_resolve(pending.pop(0))
-            if fold["replay"]:
-                fold_grow_and_replay()
-            with ti.section("3.merge", span="count.merge"):
-                for (pp, pc, pn) in fold["parked"]:
-                    while True:
-                        planes_m, counts_m, n_m, ovf_m = merge_tables_planes(
-                            pp, pc, pn, fold["p"], fold["c"], fold["n"],
-                            cap_out=fold["cap"])
-                        with time_info.span("count.merge_wait"):
-                            ovf_m = bool(ovf_m)
-                        if not ovf_m:
-                            break
-                        if fold["cap"] * 2 > cap_budget:
-                            raise _RePlan(nb_passes)
-                        fold["cap"] *= 2
-                    fold["p"], fold["c"], fold["n"] = \
-                        planes_m, counts_m, n_m
-                fold["parked"] = []
-                table = None
-                if fold["p"] is not None:
-                    with time_info.span("count.merge_wait"):
-                        table = (fold["p"], fold["c"], int(fold["n"]))
-                    if chain is None:
-                        host_tables[pass_i] = _StreamedTable(
-                            *table, w, chunk_rows=cfg.fetch_chunk_rows)
-            finish_pass(pass_i, table)
-            # the streamed fetch still reads these tensors and the fold
-            # step updates its accumulator in place, so the next pass
-            # starts from fresh tensors
-            fold["p"] = fold["c"] = fold["n"] = None
-            fold["n_known"] = 0
-
-        def lsm_count(codes, valid, lengths, pass_i, cap_out):
-            root.count(superbatches=1)
-            return _superbatch_count(
-                codes, valid, lengths, pass_i, k=k, m=cfg.minimizer_size,
-                nb_passes=nb_passes, spare=spare, cap_out=cap_out,
-                packed=packed, L=builder.L if packed else None)
-
-        def lsm_cap_out(rows: int) -> int:
-            """Distinct-table capacity of one superbatch: coverage makes
-            distinct << rows; the ratio is learned from each superbatch's
-            measured n/rows (with 1.5x headroom) and the overflow flag
-            guards exactness (the re-run at full capacity), the role of
-            the plan's distinct-kmer estimate in the reference
-            (ConfigurationAlgorithm.cpp:308)."""
-            return _next_pow2(max(
-                256, min(rows, int(rows * dedup_ratio["est"] * 1.5))))
-
-        def resolve(item):
-            """Sync point of one superbatch: overflow check (+ exact rerun
-            at full capacity when tripped), stats, ratio update."""
-            out, rows, inputs, pass_i, first_pass, g_len = item
-            with ti.section("2.sort", span="count.resolve"):
-                # ONE device->host copy for all of this superbatch's
-                # scalars (overflow flag, n, valid/inside counts)
-                ov, n, nv, ni = torch.stack(
-                    [out[3].to(I64), out[2].to(I64), out[4],
-                     out[5]]).tolist()
-                if ov:  # overflow: rerun unbounded (always exact); the
-                    # table's capacity is then the padded row count, a
-                    # power of two with a sentinel tail as merges need
-                    root.count(replays=1)
-                    with time_info.span("count.dispatch"):
-                        out = lsm_count(*inputs, pass_i, None)
-                    n, nv, ni = torch.stack(
-                        [out[2].to(I64), out[4], out[5]]).tolist()
-                out_p, counts = out[0], out[1]
-                if first_pass:
-                    valid_scalars.append(int(nv))
-                    inside_scalars.append(int(ni))
-                n = int(n)
-                dedup_ratio["est"] = max(dedup_ratio["est"], n / rows)
-            lst = tables.setdefault(pass_i, [])
-            # no eager trim: rows past n are sentinel, merges mask them;
-            # ub = n
-            lst.append((out_p, counts, n, n))
-            if sum(t[3] for t in lst) > budget_rows:
-                # bounds are no-dedup sums; collapse every bound to the
-                # exact n before concluding the pass really blew the
-                # budget (high-overlap banks would otherwise spuriously
-                # cascade re-plans)
-                lst[:] = [(p, c, nn, int(nn)) for (p, c, nn, _u) in lst]
-                if sum(t[3] for t in lst) > budget_rows:
-                    raise _RePlan(nb_passes)
-            n_resolved[0] += 1
-            with ti.section("3.merge", span="count.merge"):
-                # LSM-style size-classed merging: only merge the two
-                # smallest tables while they are in the same size class.
-                # An accumulate-into-one policy re-sorts the big table
-                # once per superbatch, O(N*P) rows; the binary-counter
-                # tree is O(N*log P) with <= ~log2(P)+2 live tables
-                while len(lst) >= 2:
-                    lst.sort(key=lambda t: t[3])
-                    if len(lst) <= _MAX_LIVE_LSM \
-                            and lst[1][3] > 2 * lst[0][3]:
-                        break
-                    _merge_smallest_pair(lst)
-            progress.inc(g_len)
-
-        def end_pass(pass_i):
-            """Pass boundary: drain + merge this pass down to ONE table
-            and FETCH it to the host: device memory holds at most the
-            active pass's tables, so the _RePlan budget bounds it."""
-            while pending:
-                resolve(pending.pop(0))
-            table = None
-            with ti.section("3.merge", span="count.merge"):
-                lst = tables.get(pass_i, [])
-                while len(lst) > 1:
-                    _merge_smallest_pair(lst)
-                if lst:
-                    planes_d, counts_d, n_d, _ = lst.pop()
-                    with time_info.span("count.merge_wait"):
-                        table = (planes_d, counts_d, int(n_d))
-                        if chain is None:
-                            host_tables[pass_i] = _MaterialTable(
-                                *_fetch_table(*table, w))
-            finish_pass(pass_i, table)
-
-        def dispatch_staged(codes, valid, lengths, pass_i):
-            """flush_group's tail for already-staged device tensors."""
-            rows = codes.shape[0] * rows_per_batch
-            with ti.section("2.sort", span="count.dispatch"):
-                out = lsm_count(codes, valid, lengths, pass_i,
-                                lsm_cap_out(rows))
-            pending.append((out, rows, (codes, valid, lengths), pass_i,
-                            False, codes.shape[0]))
-            while len(pending) > 3:
-                resolve(pending.pop(0))
-
-        def flush_group(group, pass_i, first_pass):
-            """One superbatch: stack G batches, stage them on the device,
-            count (asynchronously)."""
-            nonlocal bank_cache
-            g = len(group)
-            if g < G:
-                # pad the tail group: fold mode pads to G (every
-                # superbatch has one shape); the LSM path keeps the
-                # next-pow2 rule its capacity sizing expects
-                gp = G if use_fold else _next_pow2(g)
-                B = group[0][0].shape[0]
-                c_shape = group[0][0].shape
-                v_shape = group[0][1].shape
-                c_dt = group[0][0].dtype
-                v_dt = group[0][1].dtype
-                while len(group) < gp:
-                    group.append((np.zeros(c_shape, c_dt),
-                                  np.zeros(v_shape, v_dt),
-                                  np.zeros((B,), np.int32), 0))
-            with ti.section("1.stack", span="count.stage"):
-                codes = _stage(np.stack([b[0] for b in group]), device)
-                # dense transfer (fold+packed): a clean bank's all-ones
-                # validity masks are not sent; extraction uses the
-                # in-length rule
-                if use_fold and packed and all(
-                        _vmask_dense(b[1], b[2]) for b in group):
-                    valid = None
-                else:
-                    valid = _stage(np.stack([b[1] for b in group]), device)
-                lengths = _stage(np.stack([b[2] for b in group]), device)
-            if bank_cache is not None and pass_i == 0:
-                nb = _nbytes(codes) + _nbytes(lengths) + _nbytes(valid)
-                if cache_bytes[0] + nb <= cfg.bank_cache_bytes:
-                    bank_cache.append((codes, valid, lengths))
-                    cache_bytes[0] += nb
-                else:           # budget exceeded: drop the whole cache
-                    bank_cache = None
-            if use_fold:
-                fold_dispatch(codes, valid, lengths, pass_i, first_pass, g)
-                if fold["replay"] and not fold["growing"]:
-                    fold_grow_and_replay()
-                return
-            rows = codes.shape[0] * rows_per_batch
-            with ti.section("2.sort", span="count.dispatch"):
-                out = lsm_count(codes, valid, lengths, pass_i,
-                                lsm_cap_out(rows))
-            pending.append((out, rows, (codes, valid, lengths), pass_i,
-                            first_pass, len(group)))
-            # resolve the FIRST superbatch immediately (learn the distinct
-            # ratio before sizing the next); after that keep up to 3 in
-            # flight so host parse + transfer overlap device work
-            while len(pending) > (0 if n_resolved[0] == 0 else 3):
-                resolve(pending.pop(0))
+        driver = (_FoldDriver if use_fold else _LsmDriver)(
+            cfg, nb_passes, L, rows_per_batch, budget_rows, root, ti,
+            progress)
+        cache = _BankCache(cfg.bank_cache_bytes, nb_passes > 1)
+        host_tables: dict = {}  # pass -> its fetched (kmers, counts)
+        nb_distinct = 0
 
         # DSK pass loop (SortingCountAlgorithm.cpp:678): pass p keeps kmers
         # with minimizer % nb_passes == p; each pass streams the whole bank
         for pass_i in range(nb_passes):
             first_pass = pass_i == 0
-            if not first_pass and bank_cache is not None:
-                for staged in bank_cache:      # device-resident reuse
-                    if use_fold:
-                        fold_dispatch(*staged, pass_i, False,
-                                      staged[0].shape[0])
-                        if fold["replay"] and not fold["growing"]:
-                            fold_grow_and_replay()
-                    else:
-                        dispatch_staged(*staged, pass_i)
+            if not first_pass and cache.staged is not None:
+                for staged in cache.staged:     # device-resident reuse
+                    driver.dispatch(staged, pass_i, False,
+                                    staged[0].shape[0])
             else:
-                group: list = []
-                for batch in _prefetch(produce(first_pass), depth=4):
-                    group.append(batch)
-                    if len(group) == G:
-                        flush_group(group, pass_i, first_pass)
-                        group = []
-                if group:
-                    flush_group(group, pass_i, first_pass)
-            if use_fold:
-                fold_end_pass(pass_i)
-            else:
-                end_pass(pass_i)
+                batches = _prefetch(stream.batches(first_pass), depth=4)
+                for group in _groups(batches, G):
+                    driver.dispatch(_stage_superbatch(group, G, driver,
+                                                      cache),
+                                    pass_i, first_pass, len(group))
+            # each pass yields ONE kmer-complete table (passes partition
+            # kmers by minimizer, so a pass table is the reference's
+            # notion of a completed partition)
+            table = driver.end_pass()
+            n_pass = 0 if table is None else table[2]
+            nb_distinct += n_pass
+            if chain is not None:
+                root.count(solid_select=1)
+                if n_pass:
+                    with ti.section("4.process", span="count.process"):
+                        chain.end_pass(*table)
+            elif n_pass:
+                with ti.section("4.process", span="count.process"), \
+                        time_info.span("count.fetch_wait"):
+                    host_tables[pass_i] = _fetch_table(*table, w)
 
         t_fill = time.time() - t0
         progress.finish()
 
-        # each pass yields ONE kmer-complete table (passes partition
-        # kmers by minimizer, so a pass table is the reference's notion
-        # of a completed partition)
         t1 = time.time()
-        kmers_nb_valid = int(sum(valid_scalars))
-        kmers_nb_invalid = int(sum(inside_scalars)) - kmers_nb_valid
+        kmers_nb_valid = driver.windows
+        kmers_nb_invalid = driver.inside - kmers_nb_valid
         t_merge = time.time() - t1
 
         if chain is None:
             solid_kmers, solid_counts, histogram, amin = self._host_chain(
-                ti, [(p, host_tables[p]) for p in range(nb_passes)], w)
+                ti, host_tables, nb_passes, w)
         else:
             with ti.section("4.process", span="count.process"):
                 solid_kmers, solid_counts = chain.result(w)
             histogram, amin = chain.histogram, chain.cutoff
         histogram.nb_solids_after_cutoff = len(solid_counts)
-        nb_distinct = distinct[0]
         root.count(limbs=w, windows=kmers_nb_valid, distinct=nb_distinct,
                    solid=len(solid_counts))
 
+        nb_seq = stream.nb_seq
+        total_size = stream.total_size
         info = {
             "kmers_nb_distinct": nb_distinct,
             "kmers_nb_solid": int(len(solid_counts)),
@@ -1411,15 +1209,15 @@ class SortingCount(Algorithm):
             "kmers_nb_valid": int(kmers_nb_valid),
             "kmers_nb_invalid": int(kmers_nb_invalid),
             "sequences_number": int(nb_seq),
-            "sequences_size": int(seq_total_size),
+            "sequences_size": int(total_size),
             # seq_size_* (BankStats, SortingCountAlgorithm.cpp:735-742)
-            "seq_size_min": int(max(seq_min[0], 0)),
-            "seq_size_max": int(seq_max[0]),
-            "seq_size_mean": round(seq_total_size / nb_seq, 1)
+            "seq_size_min": int(max(stream.min, 0)),
+            "seq_size_max": int(stream.max),
+            "seq_size_mean": round(total_size / nb_seq, 1)
             if nb_seq else 0.0,
             "seq_size_deviation": round(
-                max(seq_sumsq[0] / nb_seq
-                    - (seq_total_size / nb_seq) ** 2, 0.0) ** 0.5, 1)
+                max(stream.sumsq / nb_seq
+                    - (total_size / nb_seq) ** 2, 0.0) ** 0.5, 1)
             if nb_seq else 0.0,
             "kmer_size": k,
             "abundance_min": amin,
@@ -1429,7 +1227,8 @@ class SortingCount(Algorithm):
             # passes actually RUN (>= cfg.nb_passes after optimistic
             # re-planning, counting._RePlan)
             "nb_passes_effective": int(nb_passes),
-            "parser": "python" if native_paths is None else "native",
+            "parser": "python" if stream.native_paths is None
+            else "native",
             "device": str(device),
         }
         phases = ti.get_properties("fillsolid_time")
@@ -1442,13 +1241,14 @@ class SortingCount(Algorithm):
         return CountResult(solid_kmers, solid_counts, histogram, info,
                            cfg)
 
-    def _host_chain(self, ti, parts, w: int):
+    def _host_chain(self, ti, tables: dict, nb_passes: int, w: int):
         """The processor vector on the host, for what the device chain
         does not take (a caller's processor, custom solidity, an auto
-        cutoff over several passes): each pass's table, fetched whole
-        (``parts``: (pass, host table) pairs), swept by the numpy chain and
-        then by the caller's processor. Returns (solid k-mers, solid
-        counts, histogram, abundance min)."""
+        cutoff over several passes): each pass's fetched table
+        (``tables``: pass -> (kmers, counts), none for a pass with no
+        k-mer) swept as one part by the numpy chain and then by the
+        caller's processor. Returns (solid k-mers, solid counts,
+        histogram, abundance min)."""
         cfg = self.config
         # ---- count processor vector (ICountProcessor.hpp:92-200) --------
         # Default = histogram -> solidity -> collect, expressed as the
@@ -1462,17 +1262,15 @@ class SortingCount(Algorithm):
         hist_proc = CountProcessorHistogram(cfg.histo_max,
                                             cfg.abundance_min_threshold)
         amax = cfg.abundance_max
+        collect = CountProcessorCollect()
         if cfg.auto_cutoff:
             solidity = CountProcessorSolidity(
                 cfg.solidity_kind, (0, amax), auto_histogram=hist_proc)
-        else:
-            solidity = CountProcessorSolidity(
-                cfg.solidity_kind, (int(cfg.abundance_min), amax))
-        collect = CountProcessorCollect()
-        if cfg.auto_cutoff:
             vector = [CountProcessorChain(hist_proc),
                       CountProcessorChain(solidity, collect)]
         else:
+            solidity = CountProcessorSolidity(
+                cfg.solidity_kind, (int(cfg.abundance_min), amax))
             vector = [CountProcessorChain(hist_proc, solidity, collect)]
         if self.processor is not None:
             vector.append(self.processor)
@@ -1481,14 +1279,14 @@ class SortingCount(Algorithm):
             for proc in vector:
                 proc.begin(cfg)
                 clones = []
-                for p, st in parts:
+                for p in range(nb_passes):
                     proc.begin_pass(p)
                     c = proc.clone()
-                    for ci, (uniq_c, counts_c) in enumerate(st.iter()):
-                        c.begin_part(p, ci, 0, "superbatch")
-                        c.process_table(p, uniq_c, counts_c[:, None],
-                                        counts_c)
-                        c.end_part(p, ci)
+                    if p in tables:
+                        kmers, counts = tables[p]
+                        c.begin_part(p, 0, 0, "superbatch")
+                        c.process_table(p, kmers, counts[:, None], counts)
+                        c.end_part(p, 0)
                     clones.append(c)
                     proc.end_pass(p)
                 proc.finish_clones(clones)

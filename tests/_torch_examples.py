@@ -26,21 +26,12 @@ def db(tmp_path_factory):
 def pair(name: str, db: str) -> tuple[str, str]:
     """What the JAX example ``examples/<name>`` and its mirror
     ``examples_torch/<name>`` print on the same ``db``: the JAX one with
-    ``JAX_PLATFORMS=cpu``, the mirror with ``--device cpu`` on one torch
-    thread (the test suite's workers share the host's cores; torch's
-    default of one thread a core spends several times the CPU on these
-    small tensors for the same result)."""
-    import torch
-
+    ``JAX_PLATFORMS=cpu``, the mirror with ``--device cpu`` (on the one
+    torch thread that tests/test_torch_threads.py sets)."""
     twin = runner.run_example(os.path.join(JAX_EXAMPLES, name), db,
                               env={"JAX_PLATFORMS": "cpu"})
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        mirror = runner.run_example(os.path.join(runner.HERE, name), db,
-                                    argv=["--device", "cpu"])
-    finally:
-        torch.set_num_threads(threads)
+    mirror = runner.run_example(os.path.join(runner.HERE, name), db,
+                                argv=["--device", "cpu"])
     return twin, mirror
 
 

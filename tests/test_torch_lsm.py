@@ -8,8 +8,11 @@ against the JAX package and the dict ground truth.
   and 3 passes, the bank cache on and off, a budget that forces the
   re-plan, a budget that sends the fold path to the LSM chain, k=21 and
   k=63;
-- the packed fetch (``_fetch_table``) and the streamed one
-  (``_StreamedTable``) against the plain whole fetch and the JAX packer.
+- the fold and the LSM drivers against each other at W 1, 2 and 4, over
+  one and two passes, with the bank cache and without;
+- the host fetch (``_fetch_table``) and the host chain: exact int32
+  counts past 255, the empty table, a caller's processor shown every
+  distinct row on either driver.
 
 The port pads sorts to a power of two, so capacities differ from JAX's
 along the way; live rows, counts and ``n`` are compared. Integers:
@@ -28,7 +31,9 @@ from gatb_core_tpu_torch import BankStrings, CountConfig, SortingCount
 from gatb_core_tpu_torch.convert import (planes_to_numpy, table_to_torch,
                                          u32_to_torch)
 from gatb_core_tpu_torch.kmer import counting as tc
+from gatb_core_tpu_torch.kmer.count_processor import CountProcessor
 from gatb_core_tpu_torch.kmer.model import count_kmers_py
+from gatb_core_tpu_torch.ops.kmer_ops import kmers_to_py
 
 INFO_KEYS = ("kmers_nb_distinct", "kmers_nb_solid", "kmers_nb_weak",
              "kmers_nb_valid", "kmers_nb_invalid", "sequences_number",
@@ -226,7 +231,8 @@ def test_merge_smallest_pair_keeps_n_on_device_until_the_bound(monkeypatch):
     monkeypatch.setattr(tc, "_SYNC_UB_ROWS", 512)
     tc._merge_smallest_pair(lst)
     assert lst[0][3] == 256 + 384            # refreshed: 384, not 512
-    kmers, counts = tc._merge_table_list(lst, 2)
+    ((planes, counts, n, _),) = lst
+    kmers, counts = tc._fetch_table(planes, counts, int(n), 2)
     assert len(kmers) == 640 and counts.sum() == 768
     assert (counts[128:256] == 2).all()
 
@@ -256,87 +262,68 @@ def _big_count_table(n, cap, n_big, seed):
     return tuple(planes), counts, n
 
 
-@pytest.mark.parametrize("n_big,max_exc", [(40, 4096), (40, 16), (0, 4096)],
-                         ids=["exceptions", "list-overflows", "none"])
-def test_fetch_formats_equal_the_plain_fetch(n_big, max_exc):
-    n, cap = 1500, 2048
-    planes, counts, _ = _big_count_table(n, cap, n_big, seed=n_big + max_exc)
-    tp, tcnt, tn = table_to_torch(planes, counts, n)
-    exp_k, exp_c = tc._fetch_table_whole(tp, tcnt, n, 2)
-    assert exp_c.dtype == np.int32 and exp_k.dtype == np.uint32
-    assert np.array_equal(exp_k[:, 1], planes[1][:n])
-    got_k, got_c = tc._fetch_table(tp, tcnt, n, 2, max_exc=max_exc)
-    assert np.array_equal(got_k, exp_k) and np.array_equal(got_c, exp_c)
-    st = tc._StreamedTable(tp, tcnt, n, 2, chunk_rows=256, max_exc=max_exc
-                           if max_exc == 4096 else 4)
-    chunks = list(st.iter())
-    assert len(chunks) == 6 and all(len(c) <= 256 for _, c in chunks)
-    again = list(st.iter())                  # second sweep: cached chunks
-    assert all(a[0] is b[0] and a[1] is b[1]
-               for a, b in zip(chunks, again))
-    sk, sc = st.materialize()
-    assert np.array_equal(sk, exp_k) and np.array_equal(sc, exp_c)
-    assert sc.dtype == np.int32 and st.n == n
+class _Seen(CountProcessor):
+    """Every (k-mer, count) row a caller's processor is shown."""
+
+    def __init__(self):
+        self.rows, self.n, self.parts = {}, 0, 0
+
+    def process_table(self, part_id, kmers, counts, sums):
+        self.parts += 1
+        self.n += len(kmers)
+        self.rows.update(zip(kmers_to_py(kmers), sums.tolist()))
 
 
-def test_pack_table_matches_jax_packer():
-    n, cap = 700, 1024
-    planes, counts, _ = _big_count_table(n, cap, 30, seed=2)
-    jp = jc._pack_table_jit(tuple(map(jnp.asarray, planes)),
-                            jnp.asarray(counts), jnp.int32(n), cap_out=1024,
-                            max_exc=64)
-    tp, tcnt, tn = table_to_torch(planes, counts, n)
-    rows, c8, n_exc, exc_pos, exc_val = tc._pack_table(tp, tcnt, n,
-                                                       cap_out=1024,
-                                                       max_exc=64)
-    assert np.array_equal(rows.numpy().view(np.uint32).T, np.asarray(jp[0]))
-    assert np.array_equal(c8.numpy(), np.asarray(jp[1]))
-    ne = int(jp[2])
-    assert int(n_exc) == ne == 30
-    assert np.array_equal(exc_pos.numpy(), np.asarray(jp[3]))
-    assert np.array_equal(exc_val.numpy()[:ne], np.asarray(jp[4])[:ne])
-    # one chunk of the same table
-    jq = jc._pack_table_chunk_jit(tuple(map(jnp.asarray, planes)),
-                                  jnp.asarray(counts), jnp.int32(256),
-                                  jnp.int32(n), chunk=256, max_exc=64)
-    tq = tc._pack_table_chunk(tp, tcnt, 256, n, 256, max_exc=64)
-    assert np.array_equal(tq[0].numpy().view(np.uint32).T, np.asarray(jq[0]))
-    assert np.array_equal(tq[1].numpy(), np.asarray(jq[1]))
-    assert int(tq[2]) == int(jq[2])
-    assert np.array_equal(tq[3].numpy(), np.asarray(jq[3]))
+@pytest.mark.parametrize("case,extra", [
+    ("past-uint8", None), ("empty", None),
+    ("fold", dict()), ("fold-2pass", dict(nb_passes=2)),
+    ("lsm", dict(carry_accumulator=False)),
+    ("lsm-2pass", dict(carry_accumulator=False, nb_passes=2))],
+    ids=["past-uint8", "empty", "fold", "fold-2pass", "lsm", "lsm-2pass"])
+def test_the_fetch_and_the_host_chain(case, extra):
+    """The host fetch brings counts back exact as int32 (past 255 and at
+    the boundary) and an empty table as empty arrays; on the host chain a
+    caller's processor is shown every distinct row with its count, once,
+    in one part a pass, and the result is the device chain's."""
+    if case == "past-uint8":
+        n, cap = 1500, 2048
+        planes, counts, _ = _big_count_table(n, cap, 40, seed=3)
+        kmers, got = tc._fetch_table(*table_to_torch(planes, counts, n)[:2],
+                                     n, 2)
+        assert kmers.dtype == np.uint32 and got.dtype == np.int32
+        assert np.array_equal(kmers, np.stack(planes, axis=1)[:n])
+        assert np.array_equal(got, counts[:n])
+        assert 255 in got and (got >= 255).sum() == 40
+        return
+    if case == "empty":
+        planes, counts, _ = _big_count_table(0, 256, 0, seed=4)
+        kmers, got = tc._fetch_table(*table_to_torch(planes, counts, 0)[:2],
+                                     0, 2)
+        assert kmers.shape == (0, 2) and kmers.dtype == np.uint32
+        assert got.shape == (0,) and got.dtype == np.int32
+        seen = _Seen()
+        res = _count("torch", ["ACGT" * 5], processor=seen, kmer_size=31)
+        assert seen.parts == seen.n == res.nb_solid == 0
+        return
+    kw = dict(kmer_size=31, abundance_min=2, **SMALL, **extra)
+    seen = _Seen()
+    host = _count("torch", READS, processor=seen, **kw)
+    dev = _count("torch", READS, **kw)
+    assert seen.parts == kw.get("nb_passes", 1)
+    assert seen.n == len(seen.rows) == host.info["kmers_nb_distinct"]
+    assert seen.rows == count_kmers_py(READS, 31)
+    _same_result(host, dev)
 
 
-def test_streamed_table_of_nothing_and_errors():
-    st = tc._StreamedTable(None, None, 0, 2)
-    assert list(st.iter()) == [] and st.materialize()[0].shape == (0, 2)
-    tp, tcnt, tn = table_to_torch(*_big_count_table(300, 512, 0, seed=1))
-    bad = tc._StreamedTable(tp, tcnt[:100], 300, 2, chunk_rows=256)
-    with pytest.raises(Exception):
-        list(bad.iter())
-
-
-def test_fold_path_streams_its_table(monkeypatch):
-    """On the host chain (here for a caller's processor), the fold path
-    hands its per-pass table to _StreamedTable in fetch_chunk_rows chunks;
-    the result does not depend on the chunk, nor on the chain."""
-    from gatb_core_tpu_torch.kmer.count_processor import CountProcessor
-
-    seen = []
-    orig = tc._StreamedTable.__init__
-
-    def spy(self, planes, counts, n, w, chunk_rows=1 << 23, **kw):
-        seen.append(chunk_rows)
-        orig(self, planes, counts, n, w, chunk_rows=chunk_rows, **kw)
-
-    monkeypatch.setattr(tc._StreamedTable, "__init__", spy)
-    kw = dict(kmer_size=31, abundance_min="auto", **SMALL)
-    a = _count("torch", READS, fetch_chunk_rows=256,
-               processor=CountProcessor(), **kw)
-    b = _count("torch", READS, processor=CountProcessor(), **kw)
-    assert seen == [256, 1 << 23]
-    c = _count("torch", READS, **kw)
-    assert seen == [256, 1 << 23]
-    for got in (b, c):
-        assert np.array_equal(a.solid_kmers, got.solid_kmers)
-        assert np.array_equal(a.solid_counts, got.solid_counts)
-    assert a.info["kmers_nb_distinct"] == 2968
+@pytest.mark.parametrize("k", [15, 31, 63], ids=["w1", "w2", "w4"])
+@pytest.mark.parametrize("extra", [
+    dict(), dict(nb_passes=2), dict(nb_passes=2, bank_cache_bytes=0)],
+    ids=["1pass", "2pass-cache", "2pass-nocache"])
+def test_the_fold_and_lsm_drivers_agree(k, extra):
+    """The same solid k-mers, counts, histogram and info from either
+    driver behind the one pass loop."""
+    kw = dict(kmer_size=k, abundance_min=2, **SMALL, **extra)
+    fold = _count("torch", READS, carry_accumulator=True, **kw)
+    lsm = _count("torch", READS, carry_accumulator=False, **kw)
+    assert fold.nb_solid > 0
+    _same_result(fold, lsm)
