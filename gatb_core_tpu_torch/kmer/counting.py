@@ -524,6 +524,16 @@ def _host_copies(tensors):
     return out, ev
 
 
+def _scalars_to_host(*scalars):
+    """One superbatch's device scalars (0-d or 1-d) gathered into one
+    int64 tensor and copied to the host without blocking
+    (``_host_copies``), right after its device work is queued: its
+    resolve waits on this copy's event alone, not on the work queued
+    after it."""
+    return _host_copies([torch.cat([s.reshape(-1).to(I64)
+                                    for s in scalars])])
+
+
 def _fetch_table(planes, counts, n: int, w: int):
     """The host fetch of a device distinct table: planes and int32 counts
     copied whole with ``.cpu()`` -> (kmers (n, W) uint32, counts (n,)
@@ -737,8 +747,9 @@ class _BankCache:
 def _stage_superbatch(group, G: int, driver, cache: _BankCache):
     """One superbatch on the driver's device: its read batches stacked, a
     short group padded with empty batches to G or, where the driver asks
-    (``driver.pow2_tail``), to the next power of two, uploaded,
-    and kept in ``cache`` while the cache takes them. Returns (codes,
+    (``driver.pow2_tail``), to the next power of two, uploaded
+    (``_stage``: pinned and without blocking on a CUDA device), and kept
+    in ``cache`` while the cache takes them. Returns (codes,
     valid, lengths); valid is None where the driver takes dense transfer
     (``driver.dense``) and every validity mask is the all-in-length
     pattern."""
@@ -751,12 +762,12 @@ def _stage_superbatch(group, G: int, driver, cache: _BankCache):
         group = group + [empty] * (to - g)
     device = driver.device
     with driver.ti.section("1.stack", span="count.stage"):
-        codes = _stage(np.stack([b[0] for b in group]), device)
+        codes = _stage([b[0] for b in group], device)
         if driver.dense and all(_vmask_dense(b[1], b[2]) for b in group):
             valid = None
         else:
-            valid = _stage(np.stack([b[1] for b in group]), device)
-        lengths = _stage(np.stack([b[2] for b in group]), device)
+            valid = _stage([b[1] for b in group], device)
+        lengths = _stage([b[2] for b in group], device)
     staged = (codes, valid, lengths)
     cache.add(staged)
     return staged
@@ -796,6 +807,18 @@ class _Driver:
         while self.pending:
             self._resolve(self.pending.pop(0))
 
+    def _read(self, readback) -> list:
+        """The host values of one superbatch's scalars
+        (``_scalars_to_host``): waits on their copy's event alone, and
+        counts ``resolve_ready`` where it had completed before the ask
+        (always, where there is no event: the values are on the host)."""
+        (host,), ev = readback
+        if ev is None or ev.query():
+            self.root.count(resolve_ready=1)
+        else:
+            ev.synchronize()
+        return host.tolist()
+
     def _cap_out(self, rows: int) -> int:
         """Distinct-table capacity of one superbatch: coverage makes
         distinct << rows; the ratio is learned from each superbatch's
@@ -809,8 +832,10 @@ class _Driver:
 class _FoldDriver(_Driver):
     """The fused count+fold accumulator: one device step per superbatch
     (_superbatch_count_fold). The in-flight window stays 2 deep (the
-    overflow flags are read lazily at resolve time, so device work queues
-    ahead of the host); an overflowed superbatch was NOT committed
+    overflow flags and counts are copied to the host as each fold is
+    queued, and its resolve waits on that copy's event alone, so device
+    work queues ahead of the host); an overflowed superbatch was NOT
+    committed
     (transactional fold), so it is replayed from its staged inputs on a
     doubled accumulator, the pre-growth acc is parked, and parked accs
     fold back in at pass end with one merge each. Every superbatch has
@@ -890,21 +915,18 @@ class _FoldDriver(_Driver):
                 cap_out=cap_out)
         self.p, self.c, self.n, flags, n_loc, nv, ni = out
         self.used = True
-        self.pending.append((flags, n_loc, self.n, nv, ni, staged, pass_i,
-                             count_stats, g, rows, cap_out is not None))
+        self.pending.append((_scalars_to_host(flags, n_loc, self.n, nv, ni),
+                             staged, pass_i, count_stats, g, rows,
+                             cap_out is not None))
         # window 2: each in-flight fold keeps its staged inputs alive for
         # a possible replay
         while len(self.pending) > 2:
             self._resolve(self.pending.pop(0))
 
     def _resolve(self, item) -> None:
-        (flags, n_loc, keep_n, nv, ni, staged, pass_i, count_stats, g,
-         rows, compact) = item
+        readback, staged, pass_i, count_stats, g, rows, compact = item
         with self.ti.section("2.sort", span="count.resolve"):
-            # ONE device->host copy for all of this superbatch's scalars
-            fl0, fl1, nl, kn, nvv, niv = torch.cat(
-                [flags.to(I64), torch.stack(
-                    [n_loc.to(I64), keep_n.to(I64), nv, ni])]).tolist()
+            fl0, fl1, nl, kn, nvv, niv = self._read(readback)
         if count_stats:
             self.windows += int(nvv)
             self.inside += int(niv)
@@ -992,7 +1014,9 @@ class _LsmDriver(_Driver):
         rows = staged[0].shape[0] * self.rows_per_batch
         with self.ti.section("2.sort", span="count.dispatch"):
             out = self._count(staged, pass_i, self._cap_out(rows))
-        self.pending.append((out, rows, staged, pass_i, first_pass, g))
+            readback = _scalars_to_host(out[3], out[2], out[4], out[5])
+        self.pending.append((out, readback, rows, staged, pass_i,
+                             first_pass, g))
         # resolve the FIRST superbatch immediately (learn the distinct
         # ratio before sizing the next); after that keep up to 3 in
         # flight so host parse + transfer overlap device work
@@ -1002,20 +1026,18 @@ class _LsmDriver(_Driver):
     def _resolve(self, item) -> None:
         """Sync point of one superbatch: overflow check (+ exact rerun
         at full capacity when tripped), stats, ratio update, merges."""
-        out, rows, staged, pass_i, first_pass, g = item
+        out, readback, rows, staged, pass_i, first_pass, g = item
         with self.ti.section("2.sort", span="count.resolve"):
-            # ONE device->host copy for all of this superbatch's scalars
-            # (overflow flag, n, valid/inside counts)
-            ov, n, nv, ni = torch.stack(
-                [out[3].to(I64), out[2].to(I64), out[4], out[5]]).tolist()
+            # the overflow flag, n and the valid/inside counts
+            ov, n, nv, ni = self._read(readback)
             if ov:  # overflow: rerun unbounded (always exact); the
                 # table's capacity is then the padded row count, a
                 # power of two with a sentinel tail as merges need
                 self.root.count(replays=1)
                 with time_info.span("count.dispatch"):
                     out = self._count(staged, pass_i, None)
-                n, nv, ni = torch.stack(
-                    [out[2].to(I64), out[4], out[5]]).tolist()
+                    readback = _scalars_to_host(out[2], out[4], out[5])
+                n, nv, ni = self._read(readback)
             if first_pass:
                 self.windows += int(nv)
                 self.inside += int(ni)
@@ -1072,8 +1094,10 @@ class SortingCount(Algorithm):
     the ICountProcessor.hpp:92-200 extension point) into the run: it
     joins the processor vector as its own sweep, receiving every pass's
     kmer-complete table with full lifecycle calls. ``run()`` records the
-    ``count`` span, with the superbatches dispatched and the ``replays``
-    among them (dispatched again after an overflow), the row width in
+    ``count`` span, with the superbatches dispatched, the ``replays``
+    among them (dispatched again after an overflow) and the
+    ``resolve_ready`` ones whose scalars were on the host when their
+    resolve asked (no wait for the card), the row width in
     ``limbs``, the k-mer ``windows`` counted and the ``distinct`` rows
     after the reduce as its counts."""
 
@@ -1160,7 +1184,10 @@ class SortingCount(Algorithm):
                     driver.dispatch(staged, pass_i, False,
                                     staged[0].shape[0])
             else:
-                batches = _prefetch(stream.batches(first_pass), depth=4)
+                # a queue of two superbatches' batches: the parse runs
+                # a whole superbatch ahead of the staging
+                batches = _prefetch(stream.batches(first_pass),
+                                    depth=max(4, 2 * G))
                 for group in _groups(batches, G):
                     driver.dispatch(_stage_superbatch(group, G, driver,
                                                       cache),
@@ -1304,12 +1331,27 @@ def _nbytes(t: torch.Tensor | None) -> int:
     return 0 if t is None else t.numel() * t.element_size()
 
 
-def _stage(a: np.ndarray, device) -> torch.Tensor:
-    """Host batch array -> tensor on ``device``; uint32 words travel as
-    int32 storage with the same bits."""
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def _stage(a, device) -> torch.Tensor:
+    """Host batch array, or a list of equal-shape ones stacked, -> tensor
+    on ``device``; uint32 words travel as int32 storage with the same
+    bits. On a CUDA device the rows are written straight into pinned host
+    memory and uploaded without blocking the host (torch's caching host
+    allocator keeps the buffer until its copy has completed)."""
+    stack = isinstance(a, list)
+    first = a[0] if stack else a
+    store = np.int32 if first.dtype == np.uint32 else first.dtype
+    if torch.device(device).type != "cuda":
+        host = np.stack(a) if stack else np.ascontiguousarray(a)
+        return torch.from_numpy(host.view(store)).to(device)
+    host = torch.empty(((len(a),) if stack else ()) + first.shape,
+                       dtype=torch.from_numpy(np.empty(0, store)).dtype,
+                       pin_memory=True)
+    out = host.numpy().view(first.dtype)
+    if stack:
+        np.stack(a, out=out)
+    else:
+        out[...] = a
+    return host.to(device, non_blocking=True)
 
 
 def count_kmers(bank, processor=None, **kwargs) -> CountResult:
@@ -1459,12 +1501,12 @@ def count_kmers_multibank(banks, kmer_size: int = 31,
                 group.append(((np.zeros((B, L), np.uint8),
                                np.zeros((B, L), bool),
                                np.zeros((B,), np.int32), 0), 0))
-        codes = _stage(np.stack([b[0][0] for b in group]), device)
-        valid = _stage(np.stack([b[0][1] for b in group]), device)
-        lengths = _stage(np.stack([b[0][2] for b in group]), device)
-        bank_ids = _stage(np.stack(
+        codes = _stage([b[0][0] for b in group], device)
+        valid = _stage([b[0][1] for b in group], device)
+        lengths = _stage([b[0][2] for b in group], device)
+        bank_ids = _stage(
             [np.full((group[0][0][0].shape[0],), b[1], np.int32)
-             for b in group]), device)
+             for b in group], device)
         rows = _next_pow2(max(codes.shape[0] * rows_per_batch, 256))
         cap_out = _next_pow2(max(
             256, min(rows, int(rows * dedup_ratio["est"] * 1.5))))

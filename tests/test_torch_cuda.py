@@ -115,6 +115,87 @@ def test_count_on_card_matches_cpu(cuda):
     assert on_card.as_dict() == count_kmers_py(reads, 31, abundance_min=1)
 
 
+def _window_reads():
+    """A bank whose superbatches hold ~1,600 distinct k-mers each (see
+    ``tests/test_torch_count_window.py``): a tiny distinct ratio makes
+    their compact tables overflow."""
+    rng = np.random.default_rng(7)
+    genome = "".join(rng.choice(list("ACGT"), size=6000))
+    return [genome[i:i + 100] for i in range(0, 5900, 20)]
+
+
+WINDOW_KW = dict(kmer_size=31, abundance_min=2, batch_reads=16,
+                 batch_len=128, superbatch_rows=1 << 13)
+
+
+@pytest.mark.parametrize("fold", [True, False], ids=["fold", "lsm"])
+def test_the_count_window_on_card(cuda, fold):
+    """The superbatch window: a count with replays forced equals the
+    CPU's and the dict reference, with ``resolve_ready`` counted among
+    its superbatches; staging and dispatching two superbatches raise
+    nothing under torch's sync debug mode (pinned non-blocking uploads,
+    readbacks by event; the resolves, which wait on those events, run
+    outside the guarded region), and the pass's table equals the same
+    superbatches' on the CPU."""
+    from gatb_core_tpu_torch.kmer import counting as tc
+    from gatb_core_tpu_torch.misc import time_info as T
+
+    reads = _window_reads()
+    kw = dict(WINDOW_KW, carry_accumulator=fold, distinct_ratio_hint=1e-4)
+    T.clear_spans()
+    with T.recording():
+        on_card = tc.SortingCount(tc.CountConfig(device="cuda", **kw)).run(
+            BankStrings(*reads))
+    (count,) = [sp for sp in T.spans() if sp.name == "count"]
+    T.clear_spans()
+    on_cpu = count_kmers(BankStrings(*reads), device="cpu", **kw)
+    assert np.array_equal(on_card.solid_kmers, on_cpu.solid_kmers)
+    assert np.array_equal(on_card.solid_counts, on_cpu.solid_counts)
+    assert np.array_equal(on_card.histogram.bins, on_cpu.histogram.bins)
+    assert on_card.as_dict() == count_kmers_py(reads, 31, abundance_min=2)
+    assert count.counts["replays"] >= 1
+    assert 0 <= count.counts.get("resolve_ready", 0) \
+        <= count.counts["superbatches"]
+
+    tables = []
+    for device in ("cuda", "cpu"):
+        cfg = tc.CountConfig(device=device, **kw)
+        stream = tc._ReadStream(BankStrings(*reads), cfg)
+        L = stream.builder.L
+        per_batch = cfg.batch_reads * (L - cfg.kmer_size + 1)
+        G = cfg.superbatch_rows // per_batch
+        groups = list(tc._groups(stream.batches(True), G))
+        assert len(groups) >= 3
+        driver = (tc._FoldDriver if fold else tc._LsmDriver)(
+            cfg, 1, L, per_batch, 1 << 30, T.NULL_SPAN, T.TimeInfo(),
+            T.Progress(len(groups), "", verbose=False))
+        # past its first resolve, the LSM driver keeps superbatches in
+        # flight as the fold does
+        driver.n_resolved = 1
+        cache = tc._BankCache(0, False)
+        guard = device == "cuda"
+        if guard:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for group in groups[:2]:
+                driver.dispatch(tc._stage_superbatch(group, G, driver,
+                                                     cache),
+                                0, True, len(group))
+        finally:
+            if guard:
+                torch.cuda.set_sync_debug_mode(0)
+        for group in groups[2:]:
+            driver.dispatch(tc._stage_superbatch(group, G, driver, cache),
+                            0, True, len(group))
+        planes, counts, n = driver.end_pass()
+        tables.append((planes[:, :n].cpu(), counts[:n].cpu(), n,
+                       driver.windows))
+    (pa, ca, na, wa), (pb, cb, nb, wb) = tables
+    assert na == nb > 0 and wa == wb > 0
+    assert torch.equal(pa, pb) and torch.equal(ca, cb)
+
+
 @pytest.mark.parametrize("n", [1 << 7, 1 << 14, 1 << 15, 1 << 19])
 def test_bitonic_u64_matches_plain(cuda, n):
     """Less than a tile, one tile, two tiles and many: one bitonic_u64
