@@ -401,6 +401,14 @@ class Graph:
     def delete_nodes_by_index(self, idx: np.ndarray) -> None:
         self.node_state[idx] |= 1
 
+    def reset_node_state(self) -> None:
+        """Clear every node's deletion and marks, and drop the kept
+        ``Simplifications`` instance, so that ``simplify()`` and
+        ``contigs()`` assemble the graph again as built. The port's own
+        addition: the JAX package has no such method."""
+        self.node_state[:] = 0
+        self._simplifications = None
+
     def is_node_deleted(self, nodes) -> np.ndarray:
         idx = self.node_index(nodes)
         return (self.node_state[np.maximum(idx, 0)] & 1).astype(bool) \
@@ -552,9 +560,14 @@ class Graph:
         from .simplifications import Simplifications
 
         ti = time_info.TimeInfo()
-        with ti.section("simplify"):
+        with ti.section("simplify", span="simplify", sync=True):
             simp = Simplifications(self, verbose=verbose)
             stats = simp.simplify()
+            time_info.current().count(
+                passes=stats.passes, tips=stats.tips_removed,
+                bulges=stats.bulges_removed, ecs=stats.ec_removed,
+                deleted=int((self.node_state & 1).sum()),
+                walker=simp.walked, fallbacks=simp.fallbacks)
         # keep the instance: its full-table candidate sweep and final
         # compaction serve the Monument engine (assemble_contigs) with no
         # second sweep
@@ -586,7 +599,7 @@ class Graph:
             from .traversal import assemble_contigs
 
             ti = time_info.TimeInfo()
-            with ti.section("contigs"):
+            with ti.section("contigs", span="contigs", sync=True):
                 seqs = assemble_contigs(self, traversal="monument",
                                         min_contig_len=min_contig_len,
                                         engine="fast")

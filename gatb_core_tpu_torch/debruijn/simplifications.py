@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..misc import time_info
 from .unitigs import _on, build_unitigs, cand_sweep
 
 I32 = torch.int32
@@ -117,6 +118,11 @@ class Simplifications:
         self._live_index = None
         self._counts = None
         self._arr = None
+        self._host = None
+        # bulge candidates walked in lockstep, and those of them sent to
+        # the host recursion
+        self.walked = 0
+        self.fallbacks = 0
 
     # ------------------------------------------------------------------
     def _live(self) -> torch.Tensor:
@@ -160,7 +166,17 @@ class Simplifications:
                 link_o=link_o))
         return self._arr[1]
 
+    def _host_arrays(self, ug):
+        """Host copies of ``ug``'s chain abundances, k-mer counts and
+        out-degrees for the bulge recursion, made once per compaction."""
+        if self._host is None or self._host[0] is not ug:
+            self._host = (ug, self._chain_abundance(ug).cpu().numpy(),
+                          np.asarray(ug.kmer_counts),
+                          np.diff(ug.link_offsets))
+        return self._host[1:]
+
     # ------------------------------------------------------------------
+    @time_info.spanned("simplify.tips")
     def remove_tips(self) -> int:
         """One tip-removal pass (removeTips, Simplifications.cpp:408-610)."""
         k = self.k
@@ -203,6 +219,7 @@ class Simplifications:
             self._delete_unitigs(ug, is_tip, us.node_unitig)
         self.stats.tips_removed += n_removed
         self.nb_tip_passes += 1
+        time_info.current().count(removed=n_removed)
         return n_removed
 
     def _compact(self, limbs, counts):
@@ -211,7 +228,8 @@ class Simplifications:
         if cache is not None and cache[0] == len(limbs):
             self._live_index = torch.nonzero(self._live())[:, 0]
             return cache[1], cache[2]
-        us, ug = self._compact_uncached(limbs, counts)
+        with time_info.span("simplify.compact"):
+            us, ug = self._compact_uncached(limbs, counts)
         self._compact_cache = (len(limbs), us, ug)
         return us, ug
 
@@ -336,6 +354,7 @@ class Simplifications:
         return ~has_zero & (mean_neighbors > cutoff * path_abundance)
 
     # ------------------------------------------------------------------
+    @time_info.spanned("simplify.ecs")
     def remove_erroneous_connections(self) -> int:
         """One EC pass (removeErroneousConnections,
         Simplifications.cpp:1639-1850): short unitig connected on both
@@ -395,9 +414,11 @@ class Simplifications:
             self._delete_unitigs(ug, is_ec, us.node_unitig)
         self.stats.ec_removed += n_removed
         self.nb_ec_passes += 1
+        time_info.current().count(removed=n_removed)
         return n_removed
 
     # ------------------------------------------------------------------
+    @time_info.spanned("simplify.bulges")
     def remove_bulges(self) -> int:
         """One bulge pass (removeBulges, Simplifications.cpp:1301-1630):
         a short unitig whose endpoints are also connected by an
@@ -442,6 +463,8 @@ class Simplifications:
             alt, need_fb = self._hmcp_batch(ug, c_a, c_f0, c_t, maxlens,
                                             backtrack)
             fb = torch.nonzero(need_fb)[:, 0]
+            self.walked += len(c_a)
+            self.fallbacks += len(fb)
             if len(fb):
                 got = [self._hmcp_unitigs(ug, s, t, avoid=v, maxlen=m,
                                           backtrack_limit=backtrack)
@@ -467,6 +490,7 @@ class Simplifications:
             self._delete_unitigs(ug, is_bulge, us.node_unitig)
         self.stats.bulges_removed += n_removed
         self.nb_bulge_passes += 1
+        time_info.current().count(removed=n_removed)
         return n_removed
 
     def _hmcp_unitigs(self, ug, start: int, target: int, avoid: int,
@@ -483,9 +507,7 @@ class Simplifications:
         node's expansions; `target` the oriented entry to reach; `avoid`
         the bulge path's entry, skipped only at the top expansion. Returns
         the mean coverage of the found path, or None."""
-        chain = self._chain_abundance(ug).cpu().numpy()
-        nk = np.asarray(ug.kmer_counts)
-        deg = np.diff(ug.link_offsets)
+        chain, nk, deg = self._host_arrays(ug)
         state = {"calls": 0, "aborted": False}
 
         def wmean(lens_, covs_):

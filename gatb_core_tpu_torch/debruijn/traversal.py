@@ -26,9 +26,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..misc import time_info
 from .unitigs import cand_sweep
 
 NUCLEOTIDES = "ACTG"
+# a path's bases to their codes and back, a bytes translation each
+_TO_CODES = bytes.maketrans(NUCLEOTIDES.encode(), bytes(range(4)))
+_TO_CHARS = bytes.maketrans(bytes(range(4)), NUCLEOTIDES.encode())
+_TO_COMP_CHARS = bytes.maketrans(bytes(range(4)), b"TGAC")
+_START_BLOCK = 1 << 16        # start nodes filtered by their marks at once
 
 
 class NodeGraphView:
@@ -192,6 +198,9 @@ class Traversal:
         self.max_depth = max_depth
         self.max_breadth = max_breadth
         self.stats = TraversalStats()
+        # branchings explored and consensus sets checked (Monument)
+        self.branchings = 0
+        self.consensus_checks = 0
 
     def avance(self, oid, previous_oid):
         raise NotImplementedError
@@ -249,6 +258,7 @@ class MonumentTraversal(Traversal):
 
     # -- explore_branching (Traversal.cpp:425-470) ----------------------
     def explore_branching(self, oid, previous_oid):
+        self.branchings += 1
         involved = set()
         res = self.find_end_of_branching(oid, previous_oid, involved)
         if not res:
@@ -326,6 +336,7 @@ class MonumentTraversal(Traversal):
 
     # -- validation (Traversal.cpp:679-750) -----------------------------
     def validate_consensuses(self, consensuses, start_oid):
+        self.consensus_checks += 1
         if not consensuses:
             return None
         sizes = [len(c) for c in consensuses]
@@ -354,9 +365,12 @@ class MonumentTraversal(Traversal):
 
     def most_abundant_consensus(self, consensuses, start_oid):
         """Pick the path with max mean node abundance
-        (most_abundant_consensus, Traversal.cpp)."""
+        (most_abundant_consensus, Traversal.cpp); of equal means the first
+        path in sorted order, so that the choice does not hang on the
+        strings' hashes (the JAX package takes the first in its set's
+        iteration order, which does)."""
         best, best_cov = None, -1.0
-        for c in consensuses:
+        for c in sorted(consensuses):
             cov = self._path_coverage(c, start_oid)
             if cov > best_cov:
                 best, best_cov = c, cov
@@ -431,14 +445,15 @@ class UnitigJumpTraversal(MonumentTraversal):
         super().__init__(view, terminator, **kw)
         self.us = us
         self.ug = ug
-        # CSR: node ids of each unitig in position order
+        # CSR: node ids of each unitig in position order, each node put
+        # at its unitig's offset plus its position
         nu = us.node_unitig
-        valid = nu >= 0
-        order = np.lexsort((us.node_pos[valid], nu[valid]))
-        self._unodes = np.nonzero(valid)[0][order]
+        valid = np.nonzero(nu >= 0)[0]
+        u = nu[valid].astype(np.int64)
         self._uoff = np.zeros(us.nb_unitigs + 1, np.int64)
-        np.add.at(self._uoff, nu[valid] + 1, 1)
-        self._uoff = np.cumsum(self._uoff)
+        self._uoff[1:] = np.cumsum(np.bincount(u, minlength=us.nb_unitigs))
+        self._unodes = np.empty(len(valid), np.int64)
+        self._unodes[self._uoff[u] + us.node_pos[valid]] = valid
         self._seq_cache = {}
 
     def _useq(self, u: int) -> str:
@@ -480,7 +495,7 @@ class UnitigJumpTraversal(MonumentTraversal):
                             bases = seq[pos + k:]
                         else:
                             bases = seq[:pos].translate(self._COMP)[::-1]
-                        path.extend(NUCLEOTIDES.index(c) for c in bases)
+                        path.extend(bases.encode().translate(_TO_CODES))
                         marks[ahead] = True
 
                         # travel-oriented oid of node j: 2j + strand[j],
@@ -510,68 +525,82 @@ def assemble_contigs(graph, traversal: str = "monument",
     """Assemble contigs from all unmarked starting nodes (the Minia-style
     assembly loop over the graph). ``engine='fast'`` uses the
     unitig-jumping Monument (same output, seconds at multimillion-node
-    scale); 'oracle' is the per-kmer reference port."""
+    scale); 'oracle' is the per-kmer reference port. The span open at
+    the call (``Graph.contigs``' ``contigs``) receives the counts
+    ``starts``, ``contigs``, ``bases``, ``branchings`` and
+    ``consensuses``."""
+    root = time_info.current()
     if engine == "fast" and traversal == "monument":
         from .simplifications import Simplifications
 
-        live = ~(graph.node_state & 1).astype(bool)
-        # reuse the simplify run's instance: its full-table candidate
-        # sweep (and usually its final compaction) make this a zero-sweep
-        # call (graph.simplify stores it)
-        simp = getattr(graph, "_simplifications", None) \
-            or Simplifications(graph)
-        us, ug = simp._compact(*simp._rows(simp._live()))
-        # the compaction's full-table sweep doubles as the view's
-        # neighbor table (same kernel — one device pass instead of two)
-        pre = (simp._full_ranks, simp._full_flips) \
-            if simp._full_ranks is not None else None
-        view = NodeGraphView(graph, precomputed=pre)
-        terminator = Terminator(view)
-        # us indexes the LIVE subset; remap node arrays to the full table
-        nu = np.full(view.n, -1, np.int32)
-        npos = np.zeros(view.n, np.int32)
-        nstr = np.zeros(view.n, np.int8)
-        live_idx = np.nonzero(live)[0]
-        nu[live_idx] = us.node_unitig
-        npos[live_idx] = us.node_pos
-        nstr[live_idx] = us.node_strand
-        from dataclasses import replace
+        with time_info.span("contigs.compact"):
+            # reuse the simplify run's instance: its full-table candidate
+            # sweep (and usually its final compaction) make this a
+            # zero-sweep call (graph.simplify stores it)
+            simp = getattr(graph, "_simplifications", None) \
+                or Simplifications(graph)
+            us, ug = simp._compact(*simp._rows(simp._live()))
+        with time_info.span("contigs.view"):
+            live = ~(graph.node_state & 1).astype(bool)
+            # the compaction's full-table sweep doubles as the view's
+            # neighbor table (same kernel — one device pass instead of two)
+            pre = (simp._full_ranks, simp._full_flips) \
+                if simp._full_ranks is not None else None
+            view = NodeGraphView(graph, precomputed=pre)
+            terminator = Terminator(view)
+            # us indexes the LIVE subset; remap node arrays to the full
+            # table
+            nu = np.full(view.n, -1, np.int32)
+            npos = np.zeros(view.n, np.int32)
+            nstr = np.zeros(view.n, np.int8)
+            live_idx = np.nonzero(live)[0]
+            nu[live_idx] = us.node_unitig
+            npos[live_idx] = us.node_pos
+            nstr[live_idx] = us.node_strand
+            from dataclasses import replace
 
-        us_full = replace(us, node_unitig=nu, node_pos=npos,
-                          node_strand=nstr)
-        trav = UnitigJumpTraversal(view, terminator, us_full, ug)
+            us_full = replace(us, node_unitig=nu, node_pos=npos,
+                              node_strand=nstr)
+            trav = UnitigJumpTraversal(view, terminator, us_full, ug)
     else:
-        view = NodeGraphView(graph)
-        terminator = Terminator(view)
-        cls = MonumentTraversal if traversal == "monument" \
-            else SimplePathsTraversal
-        trav = cls(view, terminator)
+        with time_info.span("contigs.view"):
+            view = NodeGraphView(graph)
+            terminator = Terminator(view)
+            cls = MonumentTraversal if traversal == "monument" \
+                else SimplePathsTraversal
+            trav = cls(view, terminator)
 
-    # Start from path boundaries first (dead ends and branching nodes),
-    # then interior nodes (cycles): starting inside a bubble would
-    # fragment contigs, since popped-bubble extensions get marked.
-    # (vectorized — the per-node Python degree loop was ~1/3 of the
-    # reads3 assembly wall-clock)
-    od = view.out_deg_arr[0::2]
-    idg = view.out_deg_arr[1::2]
-    is_boundary = view.alive & ((od != 1) | (idg != 1))
-    boundary = np.nonzero(is_boundary)[0]
-    interior = np.nonzero(view.alive & ~is_boundary)[0]
-
-    contigs = []
-    for i in np.concatenate([boundary, interior]):
-        i = int(i)
-        if terminator.marks[i] or not view.alive[i]:
-            continue
-        terminator.marks[i] = True
-        right, _ = trav.traverse(2 * i)
-        left, _ = trav.traverse(2 * i + 1)
-        comp = {"A": "T", "C": "G", "T": "A", "G": "C"}
-        left_seq = "".join(NUCLEOTIDES[nt] for nt in left)
-        right_seq = "".join(NUCLEOTIDES[nt] for nt in right)
-        start_str = view.node_string(2 * i)
-        contig = ("".join(comp[c] for c in reversed(left_seq))
-                  + start_str + right_seq)
-        if len(contig) >= min_contig_len:
-            contigs.append(contig)
+    with time_info.span("contigs.walk"):
+        # Start from path boundaries first (dead ends and branching
+        # nodes), then interior nodes (cycles): starting inside a bubble
+        # would fragment contigs, since popped-bubble extensions get
+        # marked.
+        od = view.out_deg_arr[0::2]
+        idg = view.out_deg_arr[1::2]
+        is_boundary = view.alive & ((od != 1) | (idg != 1))
+        order = np.concatenate([np.nonzero(is_boundary)[0],
+                                np.nonzero(view.alive & ~is_boundary)[0]])
+        marks = terminator.marks
+        contigs = []
+        starts = 0
+        # marks only grow: a block's nodes marked before it starts are
+        # dropped at once, the rest checked one by one as they come
+        for lo in range(0, len(order), _START_BLOCK):
+            block = order[lo:lo + _START_BLOCK]
+            for i in block[~marks[block]].tolist():
+                if marks[i]:
+                    continue
+                marks[i] = True
+                starts += 1
+                right, _ = trav.traverse(2 * i)
+                left, _ = trav.traverse(2 * i + 1)
+                if len(left) + view.k + len(right) < min_contig_len:
+                    continue
+                contigs.append(bytes(left[::-1]).translate(_TO_COMP_CHARS)
+                               .decode() + view.node_string(2 * i)
+                               + bytes(right).translate(_TO_CHARS).decode())
+    root.count(starts=starts, contigs=len(contigs),
+               bases=sum(len(c) for c in contigs),
+               branchings=trav.branchings,
+               consensuses=trav.consensus_checks)
     return contigs

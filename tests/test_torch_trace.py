@@ -1,8 +1,9 @@
 """The port's span recorder (``misc/time_info``): spans nest per thread
 and share their root, recording is on only under a profiler or inside
 ``recording()``, the ``TimeInfo`` stopwatches read the spans' stamps, and
-a graph build, its unitigs and the query API record every layer's span
-under the parents they belong to, with ``info`` unchanged. The ``cuda``
+a graph build, its unitigs, the query API, ``simplify()`` and Monument
+``contigs()`` record every layer's span under the parents they belong
+to, with their counts and with ``info`` unchanged. The ``cuda``
 test holds the spans to the device's events on one clock.
 
 The file imports neither jax nor gatb_core_tpu:
@@ -357,6 +358,76 @@ def test_info_keys_unchanged(recording):
         r = count_kmers(BankStrings(*seqs), kmer_size=31, abundance_min=1,
                         device="cpu")
         assert set(r.info) == COUNT_INFO
+
+
+def _error_reads(k=21, glen=3000, seed=11):
+    """Reads with 1% substitutions at 40x: tips and bubbles to remove."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, glen)
+    reads = []
+    for st in rng.integers(0, glen - 100, glen * 40 // 100):
+        r = genome[st:st + 100].copy()
+        hit = rng.random(100) < 0.01
+        r[hit] = (r[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+        reads.append("".join("ACGT"[c] for c in r))
+    return reads
+
+
+MINIA = {"simplify": {"simplify.tips", "simplify.bulges", "simplify.ecs",
+                      "simplify.compact"},
+         "contigs": {"contigs.compact", "contigs.view", "contigs.walk"}}
+
+
+def test_minia_spans_nest_and_count():
+    """``simplify()`` and Monument ``contigs()`` each record one synced
+    root whose stages nest under it, with the counts of what they did;
+    nothing records outside ``recording()``, and ``info`` gains the same
+    two keys either way."""
+    seqs = _error_reads()
+    g = Graph.create(BankStrings(*seqs), kmer_size=21, abundance_min=2,
+                     batch_reads=64, batch_len=128, device="cpu",
+                     superbatch_rows=1 << 13)
+    before = set(g.info)
+    plain = g.simplify(), g.contigs(traversal="monument")[0]
+    assert T.spans() == []
+    assert set(g.info) - before == {"postsolid_time.simplify",
+                                    "postsolid_time.contigs"}
+    g.reset_node_state()
+    with T.recording():
+        stats = g.simplify()
+        contigs, _ = g.contigs(traversal="monument")
+    assert (stats, contigs) == plain
+    got = _by_name(T.spans())
+    assert set(got) == {"simplify", "contigs"} | MINIA["simplify"] \
+        | MINIA["contigs"]
+    for root, stages in MINIA.items():
+        (top,) = got[root]
+        assert top.parent is None
+        for name in stages:
+            assert all(sp.root == top.id for sp in got[name]), name
+            assert top.t0_ns <= min(sp.t0_ns for sp in got[name])
+            assert max(sp.t1_ns for sp in got[name]) <= top.t1_ns
+    for name in ("simplify.tips", "simplify.bulges", "simplify.ecs"):
+        assert all(sp.parent == got["simplify"][0].id for sp in got[name])
+    s = g._simplifications
+    assert got["simplify"][0].counts == {
+        "passes": stats.passes, "tips": stats.tips_removed,
+        "bulges": stats.bulges_removed, "ecs": stats.ec_removed,
+        "deleted": int((g.node_state & 1).sum()), "walker": s.walked,
+        "fallbacks": s.fallbacks}
+    assert stats.tips_removed > 0 and stats.bulges_removed > 0
+    assert s.walked >= stats.bulges_removed
+    for name, total in (("simplify.tips", stats.tips_removed),
+                        ("simplify.bulges", stats.bulges_removed),
+                        ("simplify.ecs", stats.ec_removed)):
+        assert sum(sp.counts["removed"] for sp in got[name]) == total
+    c = got["contigs"][0].counts
+    assert c["contigs"] == len(contigs) and c["bases"] == sum(
+        map(len, contigs))
+    assert c["starts"] >= len(contigs) > 0
+    assert c["consensuses"] <= c["branchings"]
+    assert set(c) == {"starts", "contigs", "bases", "branchings",
+                      "consensuses"}
 
 
 @pytest.fixture
