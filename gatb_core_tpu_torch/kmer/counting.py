@@ -659,6 +659,8 @@ class _ReadStream:
         self.min = -1
         self.max = 0
         self.sumsq = 0.0
+        self.parse_bytes = 0     # native reader: input bytes read
+        self.parse_carried = 0   # native reader: sequences it copied
 
     def _add(self, n: int, total: int, lo: int, hi: int, sumsq: float):
         self.nb_seq += n
@@ -668,10 +670,11 @@ class _ReadStream:
             self.max = max(self.max, hi)
             self.sumsq += sumsq
 
-    def batches(self, count_stats: bool):
+    def batches(self, count_stats: bool, group: int):
         """The host batch stream, run on a producer thread (``_prefetch``)
         so parsing overlaps device work; ``count_stats`` adds the
-        sequences to the BankStats fields."""
+        sequences to the BankStats fields. The native reader fills
+        ``group`` batches (a superbatch) a call."""
         cfg = self.cfg
         packed = bool(cfg.packed_transfer)
         if self.native_paths is not None:
@@ -683,11 +686,12 @@ class _ReadStream:
             for path in self.native_paths:
                 nat = NativeBatcher(path, cfg.kmer_size, cfg.batch_reads,
                                     self.builder.L)
-                it = nat.iter_packed() if packed else iter(nat)
-                for batch in it:
-                    yield batch
+                yield from nat.batches(packed, group)
                 if count_stats:
                     self._add(*nat.stats_full())
+                nbytes, carried = nat.parse_counters()
+                self.parse_bytes += nbytes
+                self.parse_carried += carried
             return
         from ..ops.bitpack import pack_batch_np
 
@@ -1186,7 +1190,7 @@ class SortingCount(Algorithm):
             else:
                 # a queue of two superbatches' batches: the parse runs
                 # a whole superbatch ahead of the staging
-                batches = _prefetch(stream.batches(first_pass),
+                batches = _prefetch(stream.batches(first_pass, G),
                                     depth=max(4, 2 * G))
                 for group in _groups(batches, G):
                     driver.dispatch(_stage_superbatch(group, G, driver,
@@ -1226,6 +1230,9 @@ class SortingCount(Algorithm):
         histogram.nb_solids_after_cutoff = len(solid_counts)
         root.count(limbs=w, windows=kmers_nb_valid, distinct=nb_distinct,
                    solid=len(solid_counts))
+        if stream.native_paths is not None:
+            root.count(parse_bytes=stream.parse_bytes,
+                       parse_carried=stream.parse_carried)
 
         nb_seq = stream.nb_seq
         total_size = stream.total_size

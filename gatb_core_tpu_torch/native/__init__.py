@@ -50,17 +50,19 @@ def get_lib():
         lib.fastx_open.restype = ctypes.c_void_p
         lib.fastx_open.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int]
-        lib.fastx_next_batch.restype = ctypes.c_int
-        lib.fastx_next_batch.argtypes = [ctypes.c_void_p] + [
-            ctypes.c_void_p] * 3
-        lib.fastx_next_batch_packed.restype = ctypes.c_int
-        lib.fastx_next_batch_packed.argtypes = [ctypes.c_void_p] + [
-            ctypes.c_void_p] * 3
+        for fill in (lib.fastx_fill, lib.fastx_fill_packed):
+            fill.restype = ctypes.c_int
+            fill.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+                ctypes.c_void_p] * 4
         lib.fastx_stats_full.restype = None
         lib.fastx_stats_full.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double)]
+        lib.fastx_parse_counters.restype = None
+        lib.fastx_parse_counters.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64)]
         lib.fastx_close.restype = None
         lib.fastx_close.argtypes = [ctypes.c_void_p]
         lib.fastx_open_reader.restype = ctypes.c_void_p
@@ -79,6 +81,10 @@ def available() -> bool:
     return get_lib() is not None
 
 
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
 class NativeBatcher:
     """Iterator of (codes, valid, lengths, rows) batches over a FASTA/FASTQ
     path, shaped exactly like kmer/counting.py _BatchBuilder output."""
@@ -95,42 +101,43 @@ class NativeBatcher:
         if not self._h:
             raise FileNotFoundError(path)
         self._stats_full = (0, 0, 0, 0, 0.0)
+        self._counters = (0, 0)
 
     def __iter__(self):
-        lib, B, L = self._lib, self.B, self.L
-        try:
-            while True:
-                codes = np.zeros((B, L), np.uint8)
-                valid = np.zeros((B, L), np.uint8)
-                lengths = np.zeros((B,), np.int32)
-                rows = lib.fastx_next_batch(
-                    self._h, codes.ctypes.data_as(ctypes.c_void_p),
-                    valid.ctypes.data_as(ctypes.c_void_p),
-                    lengths.ctypes.data_as(ctypes.c_void_p))
-                if rows == 0:
-                    break
-                yield codes, valid.view(bool), lengths, int(rows)
-        finally:
-            self.close()
+        return self.batches(packed=False)
 
     def iter_packed(self):
         """Packed-transfer batches: (words (B, ceil(L/16)) uint32,
         vmask (B, ceil(L/32)) uint32, lengths, rows) — the 2.25 bits/base
         host->device format (pack_words/pack_valid layout, packed in C++)."""
+        return self.batches(packed=True)
+
+    def batches(self, packed: bool, group: int = 1):
+        """The batches, packed or as (codes (B, L) uint8, valid (B, L)
+        bool, lengths, rows); each C call fills ``group`` of them into
+        fresh arrays, yielded as views (a consumer may hold them all)."""
+        if group < 1:
+            raise ValueError(f"group must be at least 1, got {group}")
         lib, B, L = self._lib, self.B, self.L
-        nw, nv = (L + 15) // 16, (L + 31) // 32
+        if packed:
+            shapes = ((L + 15) // 16, np.uint32), ((L + 31) // 32, np.uint32)
+            fill = lib.fastx_fill_packed
+        else:
+            shapes = (L, np.uint8), (L, np.uint8)
+            fill = lib.fastx_fill
+        rows = np.zeros((group,), np.int32)
         try:
             while True:
-                words = np.zeros((B, nw), np.uint32)
-                vmask = np.zeros((B, nv), np.uint32)
-                lengths = np.zeros((B,), np.int32)
-                rows = lib.fastx_next_batch_packed(
-                    self._h, words.ctypes.data_as(ctypes.c_void_p),
-                    vmask.ctypes.data_as(ctypes.c_void_p),
-                    lengths.ctypes.data_as(ctypes.c_void_p))
-                if rows == 0:
+                a, b = (np.empty((group, B, n), dt) for n, dt in shapes)
+                lengths = np.empty((group, B), np.int32)
+                got = fill(self._h, group, _ptr(a), _ptr(b), _ptr(lengths),
+                           _ptr(rows))
+                if not packed:
+                    b = b.view(bool)
+                for g in range(got):
+                    yield a[g], b[g], lengths[g], int(rows[g])
+                if got < group:
                     break
-                yield words, vmask, lengths, int(rows)
         finally:
             self.close()
 
@@ -151,9 +158,22 @@ class NativeBatcher:
                                 sq.value)
         return self._stats_full
 
+    def parse_counters(self) -> tuple[int, int]:
+        """(input bytes read, decompressed for .gz; sequences that took a
+        copy: FASTA records, and those longer than a row or than the
+        scan buffer)."""
+        if self._h:
+            nbytes = ctypes.c_int64()
+            carried = ctypes.c_int64()
+            self._lib.fastx_parse_counters(self._h, ctypes.byref(nbytes),
+                                           ctypes.byref(carried))
+            self._counters = (nbytes.value, carried.value)
+        return self._counters
+
     def close(self):
         if self._h:
             self.stats_full()    # cache before the handle is freed
+            self.parse_counters()
             self._lib.fastx_close(self._h)
             self._h = None
 

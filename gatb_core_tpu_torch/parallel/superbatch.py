@@ -367,7 +367,7 @@ def count_kmers_distributed_superbatch(
             from ..native import NativeBatcher
 
             nat = NativeBatcher(native[0], k, Bg, L)
-            yield from (nat.iter_packed() if packed else nat)
+            yield from nat.batches(packed, G)
             if count_stats:
                 s_n, s_t = nat.stats_full()[:2]
                 stats[0] += s_n

@@ -164,7 +164,7 @@ def test_the_count_window_on_card(cuda, fold):
         L = stream.builder.L
         per_batch = cfg.batch_reads * (L - cfg.kmer_size + 1)
         G = cfg.superbatch_rows // per_batch
-        groups = list(tc._groups(stream.batches(True), G))
+        groups = list(tc._groups(stream.batches(True, G), G))
         assert len(groups) >= 3
         driver = (tc._FoldDriver if fold else tc._LsmDriver)(
             cfg, 1, L, per_batch, 1 << 30, T.NULL_SPAN, T.TimeInfo(),
