@@ -24,7 +24,9 @@ partition is radix-binned, sorted and 453-way-merged
   device, pass end:     the default CountProcessor chain (histogram ->
                         solidity -> collect) as one kernel
                         (ops/solid_select.py): the histogram's bins and
-                        the solid rows, which alone are copied to the host
+                        the solid rows, which alone are copied to the host;
+                        with several passes they stay on the device and
+                        merge there after the last (_merge_solid_parts)
   host, pass end:       with a caller's processor, custom solidity or an
                         auto cutoff over several passes, the pass's whole
                         table is fetched (_fetch_table), and at the end of
@@ -145,6 +147,8 @@ class CountResult:
     solid_counts: (N,) int32 abundances
     histogram: full abundance histogram over *distinct* kmers
     info: reference-style properties (kmers_nb_valid, kmers_nb_solid, ...)
+    pass_distinct: the distinct k-mers of each pass's table, in pass order
+    (DSK's pass split; empty where the count ran no pass loop)
     """
 
     solid_kmers: np.ndarray
@@ -152,6 +156,7 @@ class CountResult:
     histogram: Histogram
     info: dict
     config: CountConfig
+    pass_distinct: tuple = ()
 
     @property
     def nb_solid(self) -> int:
@@ -548,27 +553,103 @@ def _fetch_table(planes, counts, n: int, w: int):
 _DEVICE_KINDS = ("sum", "min", "max", "all", "one")
 
 
+def _merge_solid_parts(parts: list):
+    """The passes' solid rows merged on their device into one sorted
+    table. ``parts`` are (rows (n, W) int32, counts (n,) int32), each
+    sorted, none empty, and disjoint (a pass keeps the k-mers of its own
+    minimizers); the list is emptied as they are laid out. Each part is
+    laid out as one run of R = next_pow2(max n) rows of W + 1 planes, its
+    counts the last plane (a payload: keys never tie), padded with all-ones
+    sentinel rows (no canonical k-mer is all ones), beside all-sentinel
+    runs up to a power of two of runs; the runs then double by
+    ``merge_sorted_runs`` levels, and the sentinels sort to the tail.
+    Returns (rows (N, W) int32, counts (N,) int32)."""
+    w = parts[0][0].shape[1]
+    run = _next_pow2(max(cnt.numel() for _, cnt in parts))
+    size = run * _next_pow2(len(parts))
+    x = torch.full((w + 1, size), -1, dtype=I32, device=parts[0][1].device)
+    n = 0
+    for i in range(len(parts)):
+        rows, cnt = parts[i]
+        parts[i] = None
+        x[:w, i * run:i * run + cnt.numel()] = rows.T
+        x[w, i * run:i * run + cnt.numel()] = cnt
+        n += cnt.numel()
+        del rows, cnt
+    parts.clear()
+    while run < size:
+        x = merge_sorted_runs(x, run)
+        run *= 2
+    return x[:w, :n].T.contiguous(), x[w, :n]
+
+
+def _parts_fit(parts: list, more: int) -> bool:
+    """Whether the passes' solid rows may stay on their card and merge
+    there: the parts so far and ``more`` passes more of the largest one's
+    rows, with ``_merge_solid_parts``'s two padded buffers, beside the
+    most this process has held on the card, within nine tenths of its
+    memory. A table larger than that (a whole genome's) goes to the host
+    pass by pass. On a CPU device the parts always stay."""
+    rows, cnt = parts[-1]
+    if not cnt.is_cuda:
+        return True
+    big = max(c.numel() for _, c in parts)
+    held = sum(c.numel() for _, c in parts) + more * big
+    merge = 2 * _next_pow2(big) * _next_pow2(len(parts) + more)
+    need = 4 * (rows.shape[1] + 1) * (held + merge)
+    total = torch.cuda.get_device_properties(cnt.device).total_memory
+    return torch.cuda.max_memory_allocated(cnt.device) + need \
+        <= 0.9 * total
+
+
+def _merge_host_parts(parts: list):
+    """The passes' solid rows merged on the host: ``parts`` are host
+    (rows (n, W) int32, counts (n,) int32), each sorted and disjoint; the
+    list is emptied once they are joined. A stable sort of the rows as
+    big-endian byte strings (a timsort, which takes each part as one run:
+    a merge of the runs) orders them. Returns (rows (N, W) uint32, counts
+    (N,) int32)."""
+    rows = np.concatenate([r.numpy().view(np.uint32) for r, _ in parts])
+    cnt = np.concatenate([c.numpy() for _, c in parts])
+    parts.clear()
+    order = np.argsort(rows.astype(">u4").view(f"S{4 * rows.shape[1]}")
+                       .ravel(), kind="stable")
+    return rows[order], cnt[order]
+
+
 class _DeviceChain:
     """The default processor vector (histogram -> solidity -> collect) on
     the device, for a kind of ``_DEVICE_KINDS``: at each pass end the
     pass's table adds into the histogram's device bins and its solid rows
-    are compacted (``ops.solid_select``) and copied to pinned host memory
-    without blocking; ``result`` waits for the copies and brings the bins
-    over once. An auto cutoff (one pass only) is computed from the pass's
-    histogram before its select."""
+    are compacted (``ops.solid_select``). With one pass they are copied to
+    pinned host memory without blocking. With several they stay on the
+    device while they fit there with their merge (``_parts_fit``), and
+    ``result`` merges them there (``_merge_solid_parts``) and copies the
+    merged table once; past that they go to pinned host memory, and
+    ``result`` merges the copies (``_merge_host_parts``). Either merge is
+    the ``count.collect`` span, where more than one pass has solid rows.
+    ``result`` waits for the copies and brings the bins over once. An auto
+    cutoff (one pass only) is computed from the pass's histogram before
+    its select."""
 
-    def __init__(self, cfg: CountConfig, device):
+    def __init__(self, cfg: CountConfig, device, nb_passes: int):
         self.cfg = cfg
         self.histogram = Histogram(cfg.histo_max)
         self.bins = torch.zeros((cfg.histo_max + 1,), dtype=I64,
                                 device=device)
         self.cutoff = None if cfg.auto_cutoff else int(cfg.abundance_min)
+        self.merge = nb_passes > 1
         self.copies: list = []      # ((rows, counts) on the host, event)
+        # the passes' (rows, counts) kept on the device for its merge;
+        # None once they went to the host
+        self.parts: list | None = []
 
     def _fetch_bins(self) -> None:
         self.histogram.bins = self.bins.cpu().numpy().astype(np.uint64)
 
-    def end_pass(self, planes, counts, n: int) -> None:
+    def end_pass(self, planes, counts, n: int, more: int) -> None:
+        """The pass's table into the bins and its solid rows kept;
+        ``more``: the passes still to come."""
         cfg = self.cfg
         bins = self.bins
         if self.cutoff is None:
@@ -579,11 +660,39 @@ class _DeviceChain:
             bins = None
         rows, cnt = solid_select(planes, counts, n, self.cutoff,
                                  cfg.abundance_max, bins, cfg.histo_max)
-        self.copies.append(_host_copies([rows, cnt]))
+        if not self.merge:
+            self.copies.append(_host_copies([rows, cnt]))
+            return
+        if not cnt.numel():
+            return
+        if self.parts is None:
+            held = [(rows, cnt)]
+        else:
+            self.parts.append((rows, cnt))
+            if _parts_fit(self.parts, more):
+                return
+            held, self.parts = self.parts, None
+        for part in held:
+            self.copies.append(_host_copies(list(part)))
+
+    def _merge_on_device(self) -> None:
+        """The kept parts as one copy, merged on the device where more
+        than one pass has any; the span waits for the merged copy."""
+        parts, self.parts = self.parts, None
+        if len(parts) == 1:
+            self.copies.append(_host_copies(list(parts[0])))
+            return
+        with time_info.span("count.collect"):
+            copy, ev = _host_copies(_merge_solid_parts(parts))
+            if ev is not None:
+                ev.synchronize()
+        self.copies.append((copy, None))
 
     def result(self, w: int):
         """(solid k-mers (N, W) uint32, their counts (N,) int32), sorted
         across the passes; sets the histogram's bins and cutoff."""
+        if self.parts:
+            self._merge_on_device()
         with time_info.span("count.fetch_wait"):
             for _, ev in self.copies:
                 if ev is not None:
@@ -594,19 +703,16 @@ class _DeviceChain:
                 self.cfg.abundance_min_threshold)
         elif not self.cfg.auto_cutoff:
             self.histogram.cutoff = self.cutoff
-        parts = [(rows.numpy().view(np.uint32), cnt.numpy())
-                 for (rows, cnt), _ in self.copies]
-        if not parts:
+        copies, self.copies = self.copies, []
+        if not copies:
             return np.zeros((0, w), np.uint32), np.zeros((0,), np.int32)
-        if len(parts) == 1:
-            return parts[0]
-        from .count_processor import CountProcessorCollect
-
-        collect = CountProcessorCollect()
-        for rows, cnt in parts:
-            collect.process_table(0, rows, cnt[:, None], cnt)
-        kmers, _, sums = collect.result(w)
-        return kmers, sums
+        if len(copies) == 1:
+            (rows, cnt), _ = copies[0]
+            return rows.numpy().view(np.uint32), cnt.numpy()
+        parts = [part for part, _ in copies]
+        del copies
+        with time_info.span("count.collect"):
+            return _merge_host_parts(parts)
 
 
 def _global_merge(kmers: np.ndarray, counts: np.ndarray, w: int,
@@ -1103,7 +1209,11 @@ class SortingCount(Algorithm):
     ``resolve_ready`` ones whose scalars were on the host when their
     resolve asked (no wait for the card), the row width in
     ``limbs``, the k-mer ``windows`` counted and the ``distinct`` rows
-    after the reduce as its counts."""
+    after the reduce as its counts; and the ``passes`` run, the later
+    passes' superbatches ``cached`` (dispatched from the bank cache) and
+    ``reparsed`` (staged again from a fresh parse), and the
+    ``cache_bytes`` the cache held when pass 0 ended (0 where it was
+    dropped or there was one pass)."""
 
     span = "count"
 
@@ -1150,7 +1260,7 @@ class SortingCount(Algorithm):
         chain = None
         if self.processor is None and cfg.solidity_kind in _DEVICE_KINDS \
                 and not (cfg.auto_cutoff and nb_passes > 1):
-            chain = _DeviceChain(cfg, device)
+            chain = _DeviceChain(cfg, device, nb_passes)
         ti = time_info.TimeInfo()
         try:
             est_n, est_total, _ = stream.bank.estimate()
@@ -1178,12 +1288,17 @@ class SortingCount(Algorithm):
         cache = _BankCache(cfg.bank_cache_bytes, nb_passes > 1)
         host_tables: dict = {}  # pass -> its fetched (kmers, counts)
         nb_distinct = 0
+        pass_distinct: list = []
+        # later passes' superbatches dispatched from the cache, or staged
+        # again from a fresh parse; the cache's bytes after pass 0
+        cached = reparsed = cache_bytes = 0
 
         # DSK pass loop (SortingCountAlgorithm.cpp:678): pass p keeps kmers
         # with minimizer % nb_passes == p; each pass streams the whole bank
         for pass_i in range(nb_passes):
             first_pass = pass_i == 0
             if not first_pass and cache.staged is not None:
+                cached += len(cache.staged)
                 for staged in cache.staged:     # device-resident reuse
                     driver.dispatch(staged, pass_i, False,
                                     staged[0].shape[0])
@@ -1193,20 +1308,24 @@ class SortingCount(Algorithm):
                 batches = _prefetch(stream.batches(first_pass, G),
                                     depth=max(4, 2 * G))
                 for group in _groups(batches, G):
+                    reparsed += not first_pass
                     driver.dispatch(_stage_superbatch(group, G, driver,
                                                       cache),
                                     pass_i, first_pass, len(group))
+                if first_pass and cache.staged is not None:
+                    cache_bytes = cache.bytes
             # each pass yields ONE kmer-complete table (passes partition
             # kmers by minimizer, so a pass table is the reference's
             # notion of a completed partition)
             table = driver.end_pass()
             n_pass = 0 if table is None else table[2]
             nb_distinct += n_pass
+            pass_distinct.append(int(n_pass))
             if chain is not None:
                 root.count(solid_select=1)
                 if n_pass:
                     with ti.section("4.process", span="count.process"):
-                        chain.end_pass(*table)
+                        chain.end_pass(*table, nb_passes - 1 - pass_i)
             elif n_pass:
                 with ti.section("4.process", span="count.process"), \
                         time_info.span("count.fetch_wait"):
@@ -1229,7 +1348,8 @@ class SortingCount(Algorithm):
             histogram, amin = chain.histogram, chain.cutoff
         histogram.nb_solids_after_cutoff = len(solid_counts)
         root.count(limbs=w, windows=kmers_nb_valid, distinct=nb_distinct,
-                   solid=len(solid_counts))
+                   solid=len(solid_counts), passes=nb_passes, cached=cached,
+                   reparsed=reparsed, cache_bytes=cache_bytes)
         if stream.native_paths is not None:
             root.count(parse_bytes=stream.parse_bytes,
                        parse_carried=stream.parse_carried)
@@ -1273,7 +1393,7 @@ class SortingCount(Algorithm):
             ti.entries.get("2.sort", 0.0) + t_merge, 3)
         self.info.update(info)  # Algorithm.get_info() surface
         return CountResult(solid_kmers, solid_counts, histogram, info,
-                           cfg)
+                           cfg, tuple(pass_distinct))
 
     def _host_chain(self, ti, tables: dict, nb_passes: int, w: int):
         """The processor vector on the host, for what the device chain

@@ -115,6 +115,71 @@ def test_count_on_card_matches_cpu(cuda):
     assert on_card.as_dict() == count_kmers_py(reads, 31, abundance_min=1)
 
 
+@pytest.mark.parametrize("k", [31, 63])
+def test_three_pass_count_on_card_merges_there(cuda, k, monkeypatch):
+    """A three-pass count on the card equals the one-pass count on the
+    card and on the CPU, its passes' solid rows merged on the card by
+    ``merge_tiles``: one level per doubling of the four runs."""
+    from gatb_core_tpu_torch.kmer import counting as tc
+
+    rng = np.random.default_rng(9)
+    genome = "".join(rng.choice(list("ACGT"), size=3000))
+    reads = [genome[i:i + 150] for i in range(0, 2850, 5)]
+    kw = dict(kmer_size=k, abundance_min=2, batch_reads=64,
+              superbatch_rows=1 << 16)
+    one = count_kmers(BankStrings(*reads), device="cuda", **kw)
+    merges = []
+    merge = tc._merge_solid_parts
+
+    def counted(parts):
+        n, before = len(parts), S.launches["merge_tiles"]
+        out = merge(parts)
+        merges.append((n, S.launches["merge_tiles"] - before,
+                       out[0].is_cuda))
+        return out
+
+    monkeypatch.setattr(tc, "_merge_solid_parts", counted)
+    three = count_kmers(BankStrings(*reads), device="cuda", nb_passes=3,
+                        **kw)
+    assert merges == [(3, 2, True)]
+    on_cpu = count_kmers(BankStrings(*reads), device="cpu", nb_passes=3,
+                         **kw)
+    for got in (three, on_cpu):
+        assert np.array_equal(got.solid_kmers, one.solid_kmers)
+        assert np.array_equal(got.solid_counts, one.solid_counts)
+        assert np.array_equal(got.histogram.bins, one.histogram.bins)
+    assert three.info["nb_passes_effective"] == 3
+    assert three.as_dict() == count_kmers_py(reads, k, abundance_min=2)
+
+
+def test_three_pass_count_on_card_through_the_host(cuda, monkeypatch):
+    """Where the passes' solid rows would not fit on the card with their
+    merge, each goes to pinned host memory at its pass end and the host
+    merges them: the count equals the one-pass count on the card."""
+    from gatb_core_tpu_torch.kmer import counting as tc
+
+    rng = np.random.default_rng(9)
+    genome = "".join(rng.choice(list("ACGT"), size=3000))
+    reads = [genome[i:i + 150] for i in range(0, 2850, 5)]
+    kw = dict(kmer_size=31, abundance_min=2, batch_reads=64,
+              superbatch_rows=1 << 16, device="cuda")
+    one = count_kmers(BankStrings(*reads), **kw)
+    monkeypatch.setattr(tc, "_parts_fit", lambda parts, more: False)
+    merges = []
+    merge = tc._merge_host_parts
+
+    def counted(parts):
+        merges.append([(r.is_pinned(), c.is_pinned()) for r, c in parts])
+        return merge(parts)
+
+    monkeypatch.setattr(tc, "_merge_host_parts", counted)
+    three = count_kmers(BankStrings(*reads), nb_passes=3, **kw)
+    assert merges == [[(True, True)] * 3]
+    assert np.array_equal(three.solid_kmers, one.solid_kmers)
+    assert np.array_equal(three.solid_counts, one.solid_counts)
+    assert np.array_equal(three.histogram.bins, one.histogram.bins)
+
+
 def _window_reads():
     """A bank whose superbatches hold ~1,600 distinct k-mers each (see
     ``tests/test_torch_count_window.py``): a tiny distinct ratio makes

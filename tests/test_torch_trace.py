@@ -238,6 +238,49 @@ def test_replays_are_counted():
     assert got.as_dict() == want.as_dict()
 
 
+def _count_spans(nb_passes, **kw):
+    """(result, the count's spans by name, every span by id) of a count
+    of one bank in ``nb_passes`` passes."""
+    T.clear_spans()
+    with T.recording():
+        res = count_kmers(BankStrings(*_reads(n=3000, seed=11)),
+                          kmer_size=31, abundance_min=1, batch_reads=16,
+                          batch_len=128, superbatch_rows=1 << 13,
+                          device="cpu", nb_passes=nb_passes, **kw)
+    spans = T.spans()
+    return res, _by_name(spans), {sp.id: sp for sp in spans}
+
+
+@pytest.mark.parametrize("cache", [True, False], ids=["cache", "no_cache"])
+def test_passes_and_the_bank_cache_are_counted(cache):
+    """The ``count`` span counts the ``passes`` run and the later passes'
+    superbatches ``cached`` or ``reparsed``, and the cache's bytes after
+    pass 0; ``count.collect`` opens once under ``count.process`` where
+    several passes have solid rows to merge, never in one pass."""
+    one, got, _ = _count_spans(1)
+    (c1,) = got["count"]
+    assert "count.collect" not in got
+    s0 = c1.counts["superbatches"]
+    assert s0 >= 2 and "replays" not in c1.counts
+    assert {n: c1.counts[n] for n in ("passes", "cached", "reparsed",
+                                      "cache_bytes")} \
+        == {"passes": 1, "cached": 0, "reparsed": 0, "cache_bytes": 0}
+    three, got, byid = _count_spans(3, **({} if cache
+                                          else {"bank_cache_bytes": 0}))
+    (c3,) = got["count"]
+    (collect,) = got["count.collect"]
+    assert byid[collect.parent].name == "count.process"
+    assert c3.counts["passes"] == 3 and "replays" not in c3.counts
+    assert c3.counts["superbatches"] == 3 * s0
+    if cache:
+        assert (c3.counts["cached"], c3.counts["reparsed"]) == (2 * s0, 0)
+        assert c3.counts["cache_bytes"] > 0
+    else:
+        assert (c3.counts["cached"], c3.counts["reparsed"]) == (0, 2 * s0)
+        assert c3.counts["cache_bytes"] == 0
+    assert three.as_dict() == one.as_dict()
+
+
 @pytest.mark.parametrize("k", [31, 63])
 def test_count_and_build_counters(k):
     """The ``count`` span counts its row width (``limbs``), the k-mer
